@@ -2,15 +2,15 @@
 //
 // Plays the role of the google/snappy submodule + tests/swcompression.cc in
 // the reference repo (both unavailable here): an implementation of the public
-// Snappy wire format that is fully independent of the JAX/Pallas codec, used
-// by the test tiers to certify that TPU-produced streams are bit-for-bit
+// Snappy wire format that is fully independent of the JAX codec, used
+// by the test tiers to certify that device-produced streams are bit-for-bit
 // decompressible and that compressed sizes meet the software-Snappy ratio bar.
 //
 // Two encoder modes:
 //   SR_MODE_BASELINE — emulates software Snappy's parse (sparse hash table
 //     with skip acceleration, <=14-bit table). Defines the ratio baseline.
 //   SR_MODE_DENSE    — inserts every position (denser table), closer to what
-//     the TPU kernels do.
+//     the device matcher does.
 //
 // C ABI so Python binds via ctypes (no pybind11 in this image).
 
@@ -80,16 +80,16 @@ int sr_root_map(const uint8_t* elems, size_t n, uint64_t expected_out,
                 uint8_t* piece_slope, size_t max_pieces,
                 uint32_t* num_pieces);
 
-// Per-tile resolve depth hints for the TPU decoder's tile-sequential
-// tail (the framed 0x81 "tpD1" sidecar, sidecar.py): simulates the
-// decoder's resolve pipeline on one element stream — one-step source map
+// Per-tile resolve depth hints for a tile-sequential resolve tail (the
+// framed 0x81 "tpD1" sidecar, sidecar.py): simulates that resolve
+// pipeline on one element stream — one-step source map
 // with periodic-run collapse, pointer-doubling rounds while the moving
 // count exceeds tail_cap (capped at 16), then per-tile local doubling to
 // each tile's local fixpoint — and writes each tile's exact local round
 // count (65536/tile entries, depths fit u8: local depth <= log2(tile)).
-// The decoder then runs exactly depths[t] rounds per tile with no detect
-// body (tiledres.resolve_tiled_depth); a stale or wrong hint is caught
-// by the framed chunk CRC and the chunk falls back to the normal path.
+// A tile-sequential decoder can then run exactly depths[t] rounds per tile
+// with no detect body; the current decoder validates hints but does not
+// need them.
 // Returns SR_OK or an error for malformed streams/capacity.
 int sr_depth_hints(const uint8_t* elems, size_t n, uint64_t expected_out,
                    uint32_t tail_cap, uint32_t tile, uint8_t* depths);

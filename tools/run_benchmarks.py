@@ -4,16 +4,16 @@ Runs the codec over every benchmark/benchmark-data corpus file (the
 Test.scala:61-66 selection: no bank-split files) and writes, in the
 reference schema (+ wall_ns + GB/s, see utils/metrics.py):
 
-  results/tpu_results.csv          encode, end-to-end api.compress — small
+  results/encode_results.csv          encode, end-to-end api.compress — small
                                    inputs take the host fast-path, so the
                                    per-size latency profile is size-
                                    proportional like the reference's
                                    (hw_results.csv rows 2-10), not a fixed
                                    device-dispatch floor
-  results/tpu_results_device.csv   encode, device pipeline forced
+  results/encode_results_device.csv   encode, device pipeline forced
                                    (small_fastpath=False) — the device
                                    codec's own per-size profile
-  results/tpu_decode_results.csv   decode sweep (the half the reference
+  results/decode_results.csv   decode sweep (the half the reference
                                    never built): api.decompress on our own
                                    streams AND on C++-golden-encoded
                                    streams ("<type>_gold" rows)
@@ -129,12 +129,12 @@ def main():
 
     outdir = pathlib.Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
-    with (outdir / f"tpu_results{sfx}.csv").open("w") as fp:
+    with (outdir / f"encode_results{sfx}.csv").open("w") as fp:
         metrics.write_csv(enc_rows, fp)
     if dev_rows:
-        with (outdir / f"tpu_results_device{sfx}.csv").open("w") as fp:
+        with (outdir / f"encode_results_device{sfx}.csv").open("w") as fp:
             metrics.write_csv(dev_rows, fp)
-    with (outdir / f"tpu_decode_results{sfx}.csv").open("w") as fp:
+    with (outdir / f"decode_results{sfx}.csv").open("w") as fp:
         metrics.write_csv(dec_rows, fp)
 
     print(metrics.summary_table(enc_rows))

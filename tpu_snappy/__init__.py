@@ -1,9 +1,9 @@
-"""tpu-snappy: a TPU-native Snappy codec in JAX/Pallas.
+"""tpu-snappy: a Snappy codec in JAX for NVIDIA GPUs.
 
 Brand-new implementation of the capabilities of the reference Chisel RoCC
-compression accelerator (nullromo/compression-accelerator), designed
-TPU-first: Pallas/XLA kernels over 64 KB blocks in VMEM, data-parallel block
-sharding over device meshes, and a native C++ golden harness.
+compression accelerator (nullromo/compression-accelerator): XLA programs
+over whole 64 KB blocks, data-parallel block sharding over device meshes,
+and a native C++ golden harness.
 """
 
 from .config import CodecConfig, DEFAULT_CONFIG  # noqa: F401

@@ -6,7 +6,7 @@ the framing-format `StreamCompressor` / `StreamDecompressor` incremental
 classes, and the `stream_compress` / `stream_decompress` file helpers.
 The reference accelerator's host-side users program against exactly this
 kind of byte-level API (tests/compression.c:20-39 `compress(src, dst)` /
-`uncompress`); anyone migrating a Python Snappy workload onto the TPU
+`uncompress`); anyone migrating a Python Snappy workload onto the device
 codec needs the same names with the same semantics. Usage:
 
     from tpu_snappy import compat as snappy

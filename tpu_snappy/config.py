@@ -1,7 +1,7 @@
 """Codec configuration.
 
 One frozen dataclass of algorithm knobs flowing into kernels as static args —
-the TPU-native replacement for the reference's three config layers
+the replacement for the reference's three config layers
 (CompressionParameters, CompressionAccelerator.scala:12-23; CopyCompressParams,
 CopyCompress.scala:9-11; Rocket Config mixins, Configs.scala:87-99), resolving
 its acknowledged "change all the magic numbers to parameters" debt
@@ -18,10 +18,9 @@ from . import format as fmt
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
     #: LZ fragment size; matches never cross fragments. 64 KB is the format's
-    #: effective window (16-bit copy2 offsets), and one fragment fits easily
-    #: in VMEM (64 KB << ~16 MB), so no sliding window is needed — the
-    #: reference needed one only because its scratchpad was 50 KB
-    #: (MemoryController.scala:184-187).
+    #: effective window (16-bit copy2 offsets), so no sliding window is
+    #: needed — the reference needed one only because its scratchpad was
+    #: 50 KB (MemoryController.scala:184-187).
     block_size: int = fmt.BLOCK_SIZE
 
     # (No hash_bits knob: the reference sizes a 512-entry SRAM hash table
@@ -61,7 +60,7 @@ class CodecConfig:
 
     #: Per-block compressed-output capacity (worst case + slack), bytes.
     #: Snappy worst case for 64 KB is 65539 + preamble; round up to a
-    #: TPU-friendly multiple of 1024.
+    #: multiple of 1024.
     block_capacity: int = fmt.BLOCK_SIZE + 2048
 
     #: Chain-flattening mode: prefer the oldest 8-byte-verified occurrence
@@ -84,13 +83,11 @@ class CodecConfig:
     #: the match starting at i+1 is at least g bytes longer — the classic
     #: zstd/gzip lazy heuristic, reformulated as a stateless per-position
     #: mask over the propagated match lengths (a deferral chain is handled
-    #: by the commit scan, not by sequential re-evaluation; implemented in
-    #: both the XLA matcher and the fused Pallas kernel, bit-identically).
-    #: Swept 0-3 on v5e: g=2 is speed-NEUTRAL (462 vs 460 us/block — the
-    #: mask is 4 fused elementwise ops) and strictly improves ratio on text
-    #: (mtg corpus -3454 B, real-50000 -58 B, corpus bars unchanged); g=1
-    #: ties break badly (defers into equal-length chains), g=3 gives back
-    #: half of g=2's win. K=13/12 + probe dedup remain ratio-infeasible
+    #: by the commit scan, not by sequential re-evaluation). Swept 0-3 for
+    #: ratio: g=2 strictly improves ratio on text (mtg corpus -3454 B,
+    #: real-50000 -58 B, corpus bars unchanged) at the cost of 4 fused
+    #: elementwise ops; g=1 ties break badly (defers into equal-length
+    #: chains), g=3 gives back half of g=2's win. K=13/12 + probe dedup remain ratio-infeasible
     #: even with the lazy cushion (alignerTestData +5/+15 B vs golden).
     lazy: int = 2
 
@@ -99,11 +96,9 @@ class CodecConfig:
     #: membership (O(K) per level) with a final exact re-verification gate,
     #: so every emitted offset stays sort-verified either way — a signature
     #: collision can only change a tie-break to another valid candidate.
-    #: Measured on v5e (mtg, 24-wide waves): "sig" saves only ~3% encode
-    #: (444 vs 458 us/block — the membership compares are a smaller share
-    #: of the fused matcher than the op count suggests) and costs 1.4%
-    #: ratio on text (1302409 vs 1284628 B); every BASELINE bar still
-    #: clears. Kept as a knob; "exact" stays the default.
+    #: "sig" costs 1.4% ratio on text (1302409 vs 1284628 B on the mtg
+    #: corpus); every BASELINE bar still clears. The speed presets use it;
+    #: "exact" stays the default.
     sticky: str = "exact"
 
     #: Match-anchor stride: candidates are searched only at every
@@ -165,47 +160,31 @@ DEFAULT_CONFIG = CodecConfig()
 #: Speed-over-ratio encode preset (the encode mirror of the framed
 #: sidecar's size-for-decode-speed trade; like zstd's negative levels,
 #: an explicit opt-in). K=8 shrinks the restore-sort payload from 8 to 5
-#: operands and the sticky membership work ~3x. Measured on v5e
-#: (mtg corpus, 24-wide): **0.198 GB/s vs 0.164 (+21%)**, aggregate text
-#: ratio still UNDER software Snappy (x0.9941), but the per-file bars the
-#: default holds strictly are traded away: alignerTestData +31 B (+17%),
-#: real-50000 +153 B (+0.7%), real-10000 +180 B (+4.9%), random +1 B.
-#: Round-trips stay bit-exact (correctness is never traded). Sweep points
-#: (tools/jobs_archive/r3/r3_fastprof): K=10 -> 0.186 at x0.9811 (only
-#: aligner/random/real-10000 over, by less); lazy=0/sig variants measured
-#: not worth their ratio cost.
+#: operands and the sticky membership work ~3x. Aggregate text ratio
+#: stays under software Snappy (x0.9941 on the mtg corpus), but the
+#: per-file bars the default holds strictly are traded away:
+#: alignerTestData +31 B (+17%), real-50000 +153 B (+0.7%), real-10000
+#: +180 B (+4.9%), random +1 B. Round-trips stay bit-exact (correctness is
+#: never traded). Its speed on the card: not measured.
 FAST_CONFIG = CodecConfig(candidates=8, probes=8)
 
-#: Matched-ratio "turbo" preset: the admissible speed edge at the
-#: REFERENCE RTL's own ratio point. The RTL's headline 3.50 cyc/B on
-#: real-50KB comes at a compressed size 1.57x LARGER than software
-#: Snappy (32683 vs 20795 B; reference benchmark/hw_results.csv:25 and
-#: sw_results.csv:22) — a ratio trade the DEFAULT/FAST presets refuse.
-#: Opening the same trade (round-4 sweeps, tools/jobs_archive/r4):
-#: K=3 + signature sticky membership encodes mtg at 0.235-0.239 GB/s
-#: (3.91-3.99 cyc/B) with aggregate size x1.073 vs software Snappy —
-#: still 1.46x SMALLER than the RTL's output at only ~12% more cycles
-#: per byte. Sweep notes: speed saturates below K=4 (K=2 is no faster
-#: than K=3 — the K-independent stages dominate), flatten="off" is
-#: SLOWER than "class" (measured 381.7 vs 325.9 us/block at K=8: the
-#: flattening slot also feeds the odd-K packed restore form), and
-#: STICKY_LEVELS has no measurable speed effect at K=3. Round-trips
-#: stay bit-exact; only ratio is traded.
+#: Matched-ratio "turbo" preset: the speed edge at the REFERENCE RTL's own
+#: ratio trade. The RTL's headline 3.50 cyc/B on real-50KB comes at a
+#: compressed size 1.57x LARGER than software Snappy (32683 vs 20795 B;
+#: reference benchmark/hw_results.csv:25 and sw_results.csv:22) — a ratio
+#: trade the DEFAULT/FAST presets refuse. K=3 + signature sticky
+#: membership keeps aggregate size at x1.073 vs software Snappy (ratio
+#: sweeps: K=2 gains nothing over K=3; flatten="off" also feeds the odd-K
+#: packed restore worse). Round-trips stay bit-exact; only ratio is
+#: traded. Its speed on the card: not measured.
 TURBO_CONFIG = CodecConfig(candidates=3, probes=3, sticky="sig")
 
-#: RTL-dominating preset: TURBO plus stride-2 match anchors (the
-#: pair-sort/probe/restore domain halves and the window build drops to a
-#: u16 reinterpretation; see `stride`). Measured on v5e (mtg, with the
-#: tree commit scan + strided key build): **0.32 GB/s = 2.95 cyc/B at
-#: the 24-wide point, 0.35-0.36 GB/s = 2.6-2.7 cyc/B at its wave-48
-#: operating point (bench.py's SPEED_WAVE) vs the RTL's 3.50** —
-#: canonical numbers in results/preset_frontier.json — at aggregate size x1.357 vs software
-#: snappy vs the RTL's x1.571 — and on the RTL's own benchmark file
-#: (real-50000) the output is 8.6% SMALLER than the RTL's recorded
-#: 32683 B. Strictly faster AND smaller than the reference accelerator
-#: at its own ratio point; round-trips stay bit-exact. Sweep notes
-#: (tools/jobs_archive/r4): the stride-2 ratio cost is structural
-#: (even-only anchors AND sources), so raising K recovers little
-#: (K=14 s=2: x1.263 at 4.31 cyc/B) — K=3 is the edge; stride 4 breaks
-#: the RTL bar (x1.77).
+#: TURBO plus stride-2 match anchors (the pair-sort/probe/restore domain
+#: halves and the window build drops to a u16 reinterpretation; see
+#: `stride`): aggregate size x1.357 vs software snappy vs the RTL's
+#: x1.571, and on the RTL's own benchmark file (real-50000) the output is
+#: 8.6% SMALLER than the RTL's recorded 32683 B. The stride-2 ratio cost
+#: is structural (even-only anchors AND sources), so raising K recovers
+#: little (K=14 s=2: x1.263); stride 4 breaks the RTL's ratio (x1.77).
+#: Round-trips stay bit-exact. Its speed on the card: not measured.
 ULTRA_CONFIG = CodecConfig(candidates=3, probes=3, sticky="sig", stride=2)

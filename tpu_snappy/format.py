@@ -1,6 +1,6 @@
 """Snappy wire-format primitives: varints, tag bytes, size math.
 
-This is the format layer of the TPU-native codec. It owns every constant and
+This is the format layer of the device codec. It owns every constant and
 bit-layout rule of the (public, stable) Snappy format so that the kernel code
 never hard-codes format details.
 

@@ -5,7 +5,7 @@ masked CRC-32C (Castagnoli) per data chunk, with at most 65536 uncompressed
 bytes per chunk. The reference accelerator stops at raw block streams
 (`CompressionAccelerator.scala` emits bare elements; even the varint
 preamble is absent — SURVEY.md §0.2); this layer completes the production
-container story, and it maps 1:1 onto the TPU design: one 64 KB block =
+container story, and it maps 1:1 onto the device design: one 64 KB block =
 one chunk, so the same data-parallel block pipelines encode/decode framed
 streams with no re-batching.
 
@@ -16,6 +16,8 @@ both directions between them.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 
@@ -29,20 +31,30 @@ CHUNK_UNCOMPRESSED = 0x01
 CHUNK_PADDING = 0xFE
 #: Skippable (0x80-0xfd) chunks carrying our decode sidecars (sidecar.py);
 #: foreign decoders MUST ignore them per spec §4.4. 0x80 = full root map
-#: (skip parse+resolve entirely); 0x81 = per-tile depth hints (76 bytes
-#: at HINT_TILE=1024, ~0.3% of a text stream — cheap enough that "auto"
-#: emits it on every compressed text chunk).
+#: (skip parse+resolve entirely); 0x81 = per-tile depth hints (76 bytes,
+#: ~0.3% of a text stream — cheap enough that "auto" emits it on every
+#: compressed text chunk). Decode validates 0x81 hints but resolves those
+#: chunks like any other.
 CHUNK_SIDECAR = 0x80
 CHUNK_DEPTH = 0x81
+
+#: Decode-side counts, by event, since import (callers may clear() it):
+#: "sidecar" — chunks decoded through a 0x80 root map;
+#: "sidecar_rejected" — chunks whose sidecar decode failed the chunk CRC
+#: and went to the normal device path;
+#: "hinted" — compressed chunks that carried a valid 0x81 depth hint;
+#: "host_chunks" — compressed chunks decoded by the sequential host
+#: decoder (device-flagged, or beyond the device fragment capacity).
+decode_stats: collections.Counter = collections.Counter()
 
 STREAM_ID = b"\xff\x06\x00\x00sNaPpY"
 
 #: "auto" sidecar policy: emit only when the sidecar costs at most this
 #: fraction of the chunk's UNCOMPRESSED size (it competes with the ratio
-#: cushion vs software Snappy, currently ~3.7% on text). Trivially-RLE
+#: cushion vs software Snappy, a few percent on text). Trivially-RLE
 #: and near-incompressible chunks pass (their root maps are a few pieces);
-#: dense text never does — its measured root-map fragmentation is larger
-#: than the compressed payload itself (DESIGN.md "Round-3: sidecar").
+#: dense text never does — its root-map fragmentation is larger than the
+#: compressed payload itself.
 SIDECAR_AUTO_FRAC = 0.03
 
 #: Max uncompressed bytes per data chunk (spec-fixed; equals our block size).
@@ -94,7 +106,7 @@ def crc32c_batch(rows: np.ndarray) -> np.ndarray:
         # byte i of each u32 must land in bits 8i, so the view is pinned to
         # '<u4' rather than host order (the pinned check-value test guards
         # this). The native golden's Load32 assumes a little-endian host,
-        # which covers every target platform here (x86/ARM TPU hosts).
+        # which covers every target platform here (x86/ARM hosts).
         w = (rows[:, :k8].reshape(-1).view(np.dtype("<u4"))
              .reshape(rows.shape[0], -1))
         t0, t1, t2, t3, t4, t5, t6, t7 = _T
@@ -133,7 +145,7 @@ def _sidecar_chunk(elems: bytes, blen: int, policy: str) -> bytes:
     the chunk's uncompressed size: the root map where it fits (RLE/
     near-incompressible chunks) and otherwise the 76-byte 0x81 per-tile
     depth hint (dense text — where the root map costs more than the
-    payload, DESIGN.md round-3). Both fall through to the depth hint when
+    payload). Both fall through to the depth hint when
     the root map is unrepresentable."""
     if policy == "off":
         return b""
@@ -160,8 +172,8 @@ def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG,
     (chunks are independent, so the framed container composes with DP
     exactly like the raw stream does). `sidecar` ('off'|'auto'|'always')
     prepends a spec-skippable fast-decode chunk to each compressed data
-    chunk (see sidecar.py); foreign decoders ignore it, ours then decodes
-    at the gather bound."""
+    chunk (see sidecar.py); foreign decoders ignore it, ours then skips
+    parse and resolve for chunks carrying a root map."""
     parts = [STREAM_ID]
     if not data:
         return STREAM_ID
@@ -220,7 +232,7 @@ def _encode_blocks_any(blocks, lengths, cfg: CodecConfig, mesh):
         dense, out_lens = shard._encode_fn_compact(mesh, cfg, wave)(
             jax.device_put(bp, meshlib.block_sharding(mesh, cfg.dp_axis)),
             jax.device_put(lp, meshlib.scalar_sharding(mesh, cfg.dp_axis)))
-        lens_np = np.asarray(out_lens)
+        lens_np = shard.fetch_global(out_lens)
         buf = b"".join(shard.assemble_compact(
             dense, lens_np, nb, mesh, cfg.block_capacity))
         return split(buf, lens_np[:nb])
@@ -348,12 +360,10 @@ def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts,
     (no/unusable sidecar, or CRC mismatch — a wrong sidecar is just a
     skippable hint, never an error by itself). With a mesh, the batch
     shards DP like every other chunk pass (shard._decode_sidecar_fn)."""
-    import numpy as np
-
     from . import api
     from . import sidecar as sc
 
-    jobs = []  # (chunk index, elems bytes, ulen, starts, vals, wrows)
+    jobs = []  # (chunk index, elems bytes, ulen, starts, vals)
     rest = []
     for i in comp_idx:
         body = bodies[i][1]
@@ -370,7 +380,7 @@ def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts,
                 if parsed is not None:
                     sv = sc.prep_parent(*parsed, ulen)
                     if sv is not None:
-                        job = (i, elems, ulen, sv[0], sv[1], sv[2])
+                        job = (i, elems, ulen, sv[0], sv[1])
         if job is None:
             rest.append(i)
         else:
@@ -379,11 +389,7 @@ def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts,
         return rest
 
     B = len(jobs)
-    # One wrows bucket per batch (max over chunks): bounded jit variants,
-    # and the scatter's overflow counter still gates correctness.
-    wrows = max(j[5] for j in jobs)
-    units = [(elems, ulen, starts, vals)
-             for _i, elems, ulen, starts, vals, _w in jobs]
+    units = [job[1:] for job in jobs]
     if mesh is not None:
         import jax
 
@@ -395,109 +401,25 @@ def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts,
         E, S, V, U = sc.pack_batch(units, pad_rows=padded - B)
         bs = meshlib.block_sharding(mesh, cfg.dp_axis)
         ss = meshlib.scalar_sharding(mesh, cfg.dp_axis)
-        out, ok = shard._decode_sidecar_fn(mesh, cfg.dp_axis, wave, wrows)(
+        out = shard._decode_sidecar_fn(mesh, cfg.dp_axis, wave)(
             jax.device_put(E, bs), jax.device_put(S, bs),
             jax.device_put(V, bs), jax.device_put(U, ss))
-        out, ok = shard.fetch_global(out)[:B], np.asarray(ok)[:B]
+        out = shard.fetch_global(out)[:B]
     elif B > api.API_WAVE:
         E, S, V, U = sc.pack_batch(units, pad_rows=-B % api.API_WAVE)
-        out, ok = sc.decode_corpus_sidecar(E, S, V, U, wave=api.API_WAVE,
-                                           wrows=wrows)
-        out, ok = np.asarray(out)[:B], np.asarray(ok)[:B]
+        out = np.asarray(sc.decode_corpus_sidecar(
+            E, S, V, U, wave=api.API_WAVE))[:B]
     else:
-        out, ok = sc.decode_chunks_jit(*sc.pack_batch(units), wrows=wrows)
-        out, ok = np.asarray(out), np.asarray(ok)
-    for j, (i, _elems, ulen, _s, _v, _w) in enumerate(jobs):
+        out = np.asarray(sc.decode_chunks_jit(*sc.pack_batch(units)))
+    for j, (i, _elems, ulen, _s, _v) in enumerate(jobs):
         piece = out[j, :ulen].tobytes()
         want = unmask(int.from_bytes(bodies[i][1][:4], "little"))
-        if ok[j] and crc32c(piece) == want:
+        if crc32c(piece) == want:
             out_parts[i] = piece
+            decode_stats["sidecar"] += 1
         else:
             rest.append(i)  # settle on the normal path (raises if corrupt)
-    rest.sort()
-    return rest
-
-
-def _decode_hinted_chunks(bodies, depth_for, comp_idx, out_parts,
-                          cfg: CodecConfig = DEFAULT_CONFIG, mesh=None):
-    """Depth-hinted decode of compressed chunks carrying a usable 0x81
-    hint (sidecar.parse_depth validates the hint's pipeline constants).
-    The device runs the normal fragment decoder with per-tile tail round
-    counts instead of detect loops; the chunk CRC gates every byte, so a
-    wrong hint only costs a re-decode on the normal path. Returns the
-    indices still needing the normal decoder."""
-    from . import api
-    from . import sidecar as sc
-    from .ops import decode as ops_decode
-
-    jobs = []  # (chunk index, payload bytes, ulen, depths)
-    rest = []
-    for i in comp_idx:
-        body = bodies[i][1]
-        job = None
-        if i in depth_for:
-            try:
-                ulen, vstart = fmt.varint_decode(body[4:])
-            except ValueError:
-                ulen, vstart = None, 0
-            payload = body[4 + vstart:]
-            if (ulen is not None and 0 < ulen <= MAX_CHUNK
-                    and len(payload) <= ops_decode.FRAG_CAP):
-                d = sc.parse_depth(depth_for[i])
-                if d is not None:
-                    job = (i, payload, int(ulen), d)
-        if job is None:
-            rest.append(i)
-        else:
-            jobs.append(job)
-    if not jobs:
-        return rest
-
-    B = len(jobs)
-    clens = np.asarray([len(j[1]) for j in jobs], np.int32)
-    ulens = np.asarray([j[2] for j in jobs], np.int32)
-    w = ops_decode.frag_width(clens)
-    frags = np.zeros((B, w), np.uint8)
-    deps = np.zeros((B, len(jobs[0][3])), np.int32)
-    for j, (_i, payload, _u, d) in enumerate(jobs):
-        frags[j, : len(payload)] = np.frombuffer(payload, np.uint8)
-        deps[j] = d
-    if mesh is not None:
-        import jax
-
-        from .parallel import mesh as meshlib, shard
-        ndev = mesh.devices.size
-        per_dev = -(-B // ndev)
-        wave = min(shard.DP_WAVE, per_dev)
-        padded = (-(-per_dev // wave) * wave) * ndev
-        fr = np.pad(frags, ((0, padded - B), (0, 0)))
-        cl = np.pad(clens, (0, padded - B))
-        ul = np.pad(ulens, (0, padded - B))
-        dp = np.pad(deps, ((0, padded - B), (0, 0)))
-        bs = meshlib.block_sharding(mesh, cfg.dp_axis)
-        ss = meshlib.scalar_sharding(mesh, cfg.dp_axis)
-        out, ok = shard._decode_depth_fn(mesh, cfg.dp_axis, wave)(
-            jax.device_put(fr, bs), jax.device_put(cl, ss),
-            jax.device_put(ul, ss), jax.device_put(dp, bs))
-        out, ok = shard.fetch_global(out)[:B], np.asarray(ok)[:B]
-    elif B > api.API_WAVE:
-        pad = -B % api.API_WAVE
-        out, ok = ops_decode.decode_corpus_depth(
-            np.pad(frags, ((0, pad), (0, 0))), np.pad(clens, (0, pad)),
-            np.pad(ulens, (0, pad)), np.pad(deps, ((0, pad), (0, 0))),
-            wave=api.API_WAVE)
-        out, ok = np.asarray(out)[:B], np.asarray(ok)[:B]
-    else:
-        out, ok = ops_decode.decode_fragments_depth_jit(
-            frags, clens, ulens, deps)
-        out, ok = np.asarray(out), np.asarray(ok)
-    for j, (i, _payload, ulen, _d) in enumerate(jobs):
-        piece = out[j, :ulen].tobytes()
-        want = unmask(int.from_bytes(bodies[i][1][:4], "little"))
-        if ok[j] and crc32c(piece) == want:
-            out_parts[i] = piece
-        else:
-            rest.append(i)  # settle on the normal path (raises if corrupt)
+            decode_stats["sidecar_rejected"] += 1
     rest.sort()
     return rest
 
@@ -516,8 +438,9 @@ def _decode_data_chunks(bodies: list[tuple[int, bytes]],
     the fragment table. Chunks with a usable sidecar take the fast path
     (sidecar.py: skip parse/transport/resolve, one gather); the chunk CRC
     still gates the result, so a wrong sidecar only costs a re-decode.
-    Raises ValueError with the (window-relative) chunk index on
-    corruption."""
+    Depth hints (0x81) are validated and counted, and their chunks decode
+    like unhinted ones. Raises ValueError with the (window-relative)
+    chunk index on corruption."""
     from .ops import decode as ops_decode
     from . import api
 
@@ -548,8 +471,9 @@ def _decode_data_chunks(bodies: list[tuple[int, bytes]],
         comp_idx = _decode_sidecar_chunks(bodies, side_for, comp_idx,
                                           out_parts, cfg, mesh)
     if use_sidecar and depth_for:
-        comp_idx = _decode_hinted_chunks(bodies, depth_for, comp_idx,
-                                         out_parts, cfg, mesh)
+        from . import sidecar as sc
+        decode_stats["hinted"] += sum(
+            sc.parse_depth(p) is not None for p in depth_for.values())
 
     if comp_idx:
         clens = np.zeros(len(comp_idx), np.int32)
@@ -590,7 +514,7 @@ def _decode_data_chunks(bodies: list[tuple[int, bytes]],
                 jax.device_put(fr, meshlib.block_sharding(mesh, cfg.dp_axis)),
                 jax.device_put(cl, meshlib.scalar_sharding(mesh, cfg.dp_axis)),
                 jax.device_put(ul, meshlib.scalar_sharding(mesh, cfg.dp_axis)))
-            out, ok = shard.fetch_global(out)[:nf], np.asarray(ok)[:nf]
+            out, ok = shard.fetch_global(out)[:nf], shard.fetch_global(ok)[:nf]
         elif nf > api.API_WAVE:
             pad = -nf % api.API_WAVE
             fr = np.pad(frags, ((0, pad), (0, 0)))
@@ -609,6 +533,7 @@ def _decode_data_chunks(bodies: list[tuple[int, bytes]],
                 # Exotic-but-valid or corrupt: the sequential host decoder
                 # settles it (decodes the former, raises on the latter).
                 from . import reference_codec
+                decode_stats["host_chunks"] += 1
                 piece = reference_codec.decompress(body[4:])
             want = unmask(int.from_bytes(body[:4], "little"))
             if crc32c(piece) != want:

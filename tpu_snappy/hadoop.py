@@ -11,7 +11,7 @@ python-snappy ships this as `snappy.hadoop_snappy`; Spark/Hive/HDFS
 `.snappy` files use it. The reference accelerator has no container at all
 (SURVEY.md §0.2 — bare elements without even the varint preamble), so this
 is pure framework surface: each subblock is a standard raw Snappy stream,
-so the TPU block pipelines do all the work and this module only adds the
+so the device block pipelines do all the work and this module only adds the
 length framing.
 
 Encode emits one subblock per block (what python-snappy and Hadoop's

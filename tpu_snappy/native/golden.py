@@ -1,15 +1,19 @@
 """ctypes bindings to the clean-room C++ golden codec (native/).
 
-Auto-builds the shared library with CMake+ninja/make on first use and caches
-the build under native/build/. This is the Python face of the reference's
-tests/swcompression.cc path: an independent native implementation used to
-certify TPU codec output.
+Builds the shared library and the CLI harness with the system C++ compiler
+on first use and keeps them under native/build/. This is the Python face of
+the reference's tests/swcompression.cc path: an independent native
+implementation used to certify the device codec's output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
+import os
 import pathlib
+import platform
 import subprocess
 import threading
 
@@ -34,17 +38,53 @@ _lock = threading.Lock()
 _lib = None
 
 
+_SOURCES = ("snappy_ref.cc", "snappy_ref.h", "swcompression.cc")
+
+
+def _stamp() -> str:
+    """What the build depends on: the sources, the compiler, the machine
+    and the build directory's own path. A build whose stamp differs (a
+    source edit, another toolchain, a tree copied from elsewhere) is
+    rebuilt rather than trusted."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update((_NATIVE / name).read_bytes())
+    cxx = os.environ.get("CXX", "c++")
+    ver = subprocess.run([cxx, "--version"], capture_output=True,
+                         text=True).stdout
+    h.update("\0".join([cxx, ver, platform.platform(), str(_BUILD)]).encode())
+    return h.hexdigest()
+
+
 def _build() -> pathlib.Path:
+    """Build (or reuse) native/build/libsnappy_ref.so and the swcompression
+    CLI with `c++ -O2`. A file lock serializes concurrent builders (test
+    workers); outputs are written under temporary names and renamed."""
     lib = _BUILD / "libsnappy_ref.so"
-    if not lib.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        stamp_file = _BUILD / "stamp"
+        stamp = _stamp()
+        if (lib.exists() and (_BUILD / "swcompression").exists()
+                and stamp_file.exists()
+                and stamp_file.read_text() == stamp):
+            return lib
+        cxx = os.environ.get("CXX", "c++")
+        tmp_lib = _BUILD / f"libsnappy_ref.so.tmp{os.getpid()}"
+        tmp_cli = _BUILD / f"swcompression.tmp{os.getpid()}"
         subprocess.run(
-            ["cmake", "-S", str(_NATIVE), "-B", str(_BUILD), "-G", "Ninja"],
-            check=True, capture_output=True,
-        )
+            [cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+             str(_NATIVE / "snappy_ref.cc"), "-o", str(tmp_lib)],
+            check=True, capture_output=True)
+        os.replace(tmp_lib, lib)
         subprocess.run(
-            ["cmake", "--build", str(_BUILD)], check=True, capture_output=True
-        )
+            [cxx, "-O2", "-std=c++17", str(_NATIVE / "swcompression.cc"),
+             "-o", str(tmp_cli), "-L", str(_BUILD), "-lsnappy_ref",
+             "-Wl,-rpath,$ORIGIN"],
+            check=True, capture_output=True)
+        os.replace(tmp_cli, _BUILD / "swcompression")
+        stamp_file.write_text(stamp)
     return lib
 
 

@@ -2,11 +2,9 @@
 
 BASELINE.md's correctness bar is "bit-for-bit decompressible by
 google/snappy (tests/swcompression.cc path)" — the reference links the
-actual library (/root/reference/tests/swcompression.cc:31,
-.gitmodules:13-15). Round 1 certified against two clean-room goldens
-because pip/network is unavailable; this module closes the gap via the
-system libsnappy (discovered at /lib/x86_64-linux-gnu/libsnappy.so.1,
-v1.1.9), using snappy's stable C ABI (snappy-c.h).
+actual library (reference tests/swcompression.cc:31, .gitmodules:13-15).
+This module binds the system libsnappy (libsnappy.so.1) through snappy's
+stable C ABI (snappy-c.h), alongside the two clean-room goldens.
 
 Everything degrades gracefully: `available()` is False where no system
 snappy exists, and the dependent tests skip (the clean-room goldens

@@ -36,109 +36,27 @@ import numpy as np
 from .. import format as fmt
 from ..config import CodecConfig, DEFAULT_CONFIG
 from . import scan
-from .pallas import ffill as pallas_ffill
-from .pallas import fields as pallas_fields
-from .pallas import gather as pallas_gather
-from .pallas import scatter as pallas_scatter
 
-
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
-
-
-def _gather_out(x: jax.Array, idx: jax.Array, limbs: int = 2) -> jax.Array:
-    """64K-domain dynamic gather: MXU one-hot kernel on TPU (2.3x XLA's
-    scalar gather path), plain indexing elsewhere. Values must fit 8*limbs
-    bits (output positions need 2 limbs, bytes only 1)."""
-    if _on_tpu():
-        return pallas_gather.gather_block(x, idx, limbs)
-    return x[idx]
-
-
-def _scatter_out(dest: jax.Array, values: jax.Array, limbs: int) -> jax.Array:
-    """Additive scatter onto a 64K output block (dest == 65536 drops);
-    MXU one-hot kernel on TPU, .at[].add elsewhere. Duplicate destinations
-    SUM (the transport scatter relies on this: tag-descriptor and payload
-    sources share cells via disjoint bit ranges). Returns (65536,) int32
-    with unwritten cells 0."""
-    if _on_tpu():
-        return pallas_scatter.scatter_block(dest, values, limbs)
-    return jnp.zeros(OUT + 1, jnp.int32).at[dest].add(values)[:OUT]
-
-
-def _ffill(mask: jax.Array, vals: tuple) -> tuple:
-    """Multi-payload forward-fill: VMEM-resident Pallas kernel on TPU,
-    associative scan elsewhere."""
-    if _on_tpu():
-        return pallas_ffill.ffill_block(mask, *vals)
-    return scan.ffill_many(mask, vals)
 
 #: Per-fragment compressed capacity. A 64 KB fragment from any sane encoder
 #: compresses to <= 65536 + headers; adversarial-but-valid streams (e.g. all
 #: 1-byte copies) can exceed this and fall back to sequential decode.
 FRAG_CAP = 68 * 1024
 
-#: Halving-tree levels for the parse entry scan (TPU only;
-#: scan.entry_states_tree_general — concatenated pair tables, so the
-#: bounded-domain restriction does not apply). Each level halves the
-#: fragment-width/64 sequential scan steps at one one-hot compose.
-PARSE_TREE_LEVELS = 0
 OUT = fmt.BLOCK_SIZE
 
 #: Sparse-resolve extraction width (hybrid path): the dense doubling loop
-#: runs until the moving set fits this many lanes. Re-swept on v5e after
-#: the int8 gather + bucketed widths (mtg own streams, us/frag):
-#: 8192 -> 930, 12288 -> 860, 16384 -> 881 — one more dense round traded
-#: for a wider chase now wins (an earlier sweep at 8-block waves preferred
-#: 8192; the chase gathers got relatively cheaper).
+#: runs until the moving set fits this many lanes, then the sparse chase
+#: takes over on the extracted lanes.
 SPARSE_CAP = 12288
 
-#: resolve="tiledtail" dense-round exit: once the moving set is at most
-#: this many lanes, the tile-sequential kernel takes over. Unlike
-#: SPARSE_CAP this is not a lane budget — the tail kernel's cost scales
-#: with remaining chain STRUCTURE, so the threshold can sit much higher.
-#: Round-2 re-sweep on v5e (mtg own-streams, 24-wide, best-of-2 at
-#: ITERS=20): 32768 -> 650.5, 40960 -> 598.6, 49152 -> 640.0,
-#: 57344 -> 599.3, 61440 -> 606.3 us/frag; tile 8192 loses ~55 at either
-#: cap. The vmapped dense while-loop runs LOCKSTEP to the slowest
-#: fragment of the wave, so fewer mandatory dense rounds win even though
-#: the tail's per-tile local rounds grow. Cross-class check (us/frag,
-#: cap 32768 / 40960 / 57344): mtg-own 668/612/602, mtg-golden
-#: 703/628/618, repeating 251/241/235, random 406/379/378 — 57344
-#: dominates every class.
-TAIL_CAP = 57344
 
-#: Tail kernel tile size (positions per sequential absorb step) and
-#: variant ("fori" dynamic loop; "pair" two-tiles-per-P-step with fixup;
-#: "tri" statically-unrolled triangular absorb — measured worse).
-TAIL_TILE = 4096
-TAIL_VARIANT = "fori"
-
-#: Tail tile for the DEPTH-HINTED path only. With exact per-tile depths
-#: there is no detect penalty for small tiles (each tile runs exactly its
-#: productive rounds), and smaller tiles mean shorter in-tile chains:
-#: swept with hints on mtg (cap 57344), us/frag: tile 4096 -> 502-504,
-#: 2048 -> 472, 1024 -> 430-432 (+17%, bit-identical; tiles < 1024 hit
-#: Mosaic layout limits). The PLAIN tail keeps TAIL_TILE=4096 — without
-#: hints every tile pays a detect body, which dominates at small tiles.
-#: The 0x81 sidecar carries (cap, tile), so hints built for one tile are
-#: ignored (clean fallback) by a decoder built for another.
-HINT_TILE = 1024
-
-#: resolve="paratail" knobs: dense-round exit cap (dense doubling runs
-#: while the moving set exceeds this; 65536 = no dense rounds at all) and
-#: the tile size shared by the parallel local rounds and the absorb-only
-#: tail. See the mode's inline comment.
-PARA_CAP = 65536
-PARA_TILE = 4096
-
-#: Run the first two resolve doubling rounds through the anchored-window
-#: gather kernel (ops/pallas/gatherwin.py) instead of full dense rounds.
-#: Measured perf-NEUTRAL on TPU (930 vs 932 us/frag on mtg, same-session
-#: A/B): the 1/8 MAC saving is eaten by the per-call kernel overhead, as
-#: with the earlier windowed-round variants. Kept as a tested knob; the
-#: default preserves the clean sparse-chase termination bound.
-WINDOWED_OPENING = False
+def _scatter_out(dest: jax.Array, values: jax.Array) -> jax.Array:
+    """Additive scatter onto a 64K output block (dest == 65536 drops).
+    Duplicate destinations SUM (the transport scatter relies on this:
+    tag-descriptor and payload sources share cells via disjoint bit
+    ranges). Returns (65536,) int32 with unwritten cells 0."""
+    return jnp.zeros(OUT + 1, jnp.int32).at[dest].add(values)[:OUT]
 
 
 def _elem_fields(c: jax.Array):
@@ -180,8 +98,7 @@ def _elem_fields(c: jax.Array):
     return size, outbytes, is_lit, hdr, length, copy_off
 
 
-def parse_transport(c: jax.Array, clen: jax.Array, ulen: jax.Array,
-                    fields: str = "auto", collapse_runs: bool = True):
+def parse_transport(c: jax.Array, clen: jax.Array, ulen: jax.Array):
     """The decode front half: PARSE + TRANSPORT + run collapse.
 
     Returns (lit_out (65536,) i32 bytes, src (65536,) i32 one-step source
@@ -191,28 +108,13 @@ def parse_transport(c: jax.Array, clen: jax.Array, ulen: jax.Array,
     m = c.shape[-1]
     iota = jnp.arange(m, dtype=jnp.int32)
 
-    if fields == "kernel" and m % 2048 == 0:
-        # Fused VMEM kernel at the bucketed fragment width (width-
-        # parametric, gridded). Measured a WASH end-to-end vs the XLA
-        # expression (932.6 vs 934.4 us/frag on mtg at B=24): XLA fuses
-        # the whole fields+parse front into the downstream consumers well
-        # enough that a prefix-timing breakdown overstates its cost. Kept
-        # selectable + tested; the earlier grid=1 full-capacity form was
-        # strictly worse (0.667 vs 0.288 ms/block).
-        size, outbytes, is_lit_i, hdr, off = pallas_fields.elem_fields_block(c)
-        is_lit = is_lit_i == 1
-    else:
-        size, outbytes, is_lit, hdr, _length, off = _elem_fields(c)
+    size, outbytes, is_lit, hdr, _length, off = _elem_fields(c)
 
     # --- PARSE: true tag chain ---
     jump = jnp.clip(size, 1, None)
-    tags = scan.commit_general(
-        jump, tree_levels=PARSE_TREE_LEVELS if _on_tpu() else 0
-    ) & (iota < clen)
+    tags = scan.commit_general(jump) & (iota < clen)
 
     # Output start position of each element; chain-consistency checks.
-    # (A/B'd against the Pallas single-pass scan, ops/pallas/scans.py:
-    # decode 1383.4 vs 1391.0 us/block — a wash; XLA path kept.)
     opos = scan.exclusive_cumsum(jnp.where(tags, outbytes, 0))
     total_out = jnp.sum(jnp.where(tags, outbytes, 0))
     # The chain must consume exactly clen bytes: the last tag must end at clen.
@@ -225,15 +127,12 @@ def parse_transport(c: jax.Array, clen: jax.Array, ulen: jax.Array,
     # --- TRANSPORT: one fused scatter (compressed -> output space) ---
     # Literal payload bytes ride bits 0-7; the element descriptor rides
     # bits 8-24 at its element's output start, encoded as
-    # `1` for a literal run and `offset + 1` for a copy — the cell value
-    # tops out at exactly 2^24 (offset 65535 copies), which the scatter's
-    # 256-valued top limb covers, so THREE 8-bit limb passes suffice
-    # instead of four (the scatter kernel is MAC-proportional in limbs).
+    # `1` for a literal run and `offset + 1` for a copy (at most 2^24).
     # A tag source and a payload source can target the SAME cell (a
     # literal's first payload byte lands at its element's opos), but they
     # occupy disjoint bit ranges, so the duplicate-sum semantics compose
-    # them exactly — one one-hot build instead of two.
-    estart, eopos, ehdr, eislit = _ffill(
+    # them exactly — one scatter instead of two.
+    estart, eopos, ehdr, eislit = scan.ffill_many(
         tags, (iota, opos, hdr, is_lit.astype(jnp.int32)))
     is_payload = (eislit == 1) & (iota >= estart + ehdr) & (iota < clen)
     out_q = eopos + iota - estart - ehdr
@@ -242,23 +141,13 @@ def parse_transport(c: jax.Array, clen: jax.Array, ulen: jax.Array,
     mdst = jnp.where(tags, jnp.minimum(opos, OUT),
                      jnp.where(is_payload, jnp.clip(out_q, 0, OUT), dump))
     mval = jnp.where(tags, desc << 8, c.astype(jnp.int32))
-    if _on_tpu():
-        # Transport destinations are nondecreasing (tags at opos, payload
-        # at out_q, both monotone in input position) apart from dropped
-        # writes, so the windowed scatter applies: WROWS/512 of the full
-        # kernel's MAC work. Valid streams cannot overflow the window
-        # (Snappy expansion caps a tile's output span — see WROWS); an
-        # overflow therefore marks the fragment invalid.
-        merged, sovf = pallas_scatter.scatter_windowed(mdst, mval, 3, OUT)
-        ok &= sovf == 0
-    else:
-        merged = _scatter_out(mdst, mval, limbs=3)
+    merged = _scatter_out(mdst, mval)
     lit_out = merged & 0xFF
     o_desc = merged >> 8
 
     # --- RESOLVE: copy chains over output space ---
     oiota = jnp.arange(OUT, dtype=jnp.int32)
-    desc_f = _ffill(o_desc != 0, (o_desc,))[0]
+    desc_f = scan.ffill(o_desc != 0, o_desc)
     lit_f = desc_f == 1
     off_f = jnp.maximum(desc_f - 1, 0)
 
@@ -268,220 +157,38 @@ def parse_transport(c: jax.Array, clen: jax.Array, ulen: jax.Array,
     # arithmetically to the pre-run base region [run_start - off, run_start)
     # — no pointer-doubling needed. This removes the RLE worst case the
     # format's overlap semantics create (repeating-50000: 16 doubling
-    # rounds -> 0, measured; cross-window reference chains on text are
-    # unaffected and still take ~6 rounds).
+    # rounds -> 0; cross-window reference chains on text are unaffected
+    # and still take ~6 rounds).
     src_plain = oiota - off_f
-    if collapse_runs:
-        is_start = o_desc != 0
-        off_prev = jnp.roll(off_f, 1, axis=-1)
-        lit_prev = jnp.roll(lit_f, 1, axis=-1)
-        run_head = is_start & ~lit_f & (
-            lit_prev | (off_prev != off_f) | (oiota == 0))
-        rs_f = _ffill(run_head, (oiota,))[0]
-        base = rs_f - off_f
-        offc = jnp.maximum(off_f, 1)
-        src_mod = (oiota - base) % offc + base
-        src = jnp.where(lit_f, oiota,
-                        jnp.where(src_plain >= rs_f, src_mod, src_plain))
-    else:
-        src = jnp.where(lit_f, oiota, src_plain)
+    is_start = o_desc != 0
+    off_prev = jnp.roll(off_f, 1, axis=-1)
+    lit_prev = jnp.roll(lit_f, 1, axis=-1)
+    run_head = is_start & ~lit_f & (
+        lit_prev | (off_prev != off_f) | (oiota == 0))
+    rs_f = scan.ffill(run_head, oiota)
+    base = rs_f - off_f
+    offc = jnp.maximum(off_f, 1)
+    src_mod = (oiota - base) % offc + base
+    src = jnp.where(lit_f, oiota,
+                    jnp.where(src_plain >= rs_f, src_mod, src_plain))
     src = jnp.clip(src, 0, OUT - 1)
     return lit_out, src, ok
 
 
 def decode_fragment(c: jax.Array, clen: jax.Array, ulen: jax.Array,
-                    resolve: str = "auto", fields: str = "auto",
-                    collapse_runs: bool = True,
-                    depths: jax.Array | None = None):
-    """Decode one fragment. c: (FRAG_CAP,) uint8 zero-padded; clen/ulen scalars.
-    resolve: copy-chain strategy — "auto" (TPU: "tiledtail", else
-    "hybrid"), "tiledtail" (adaptive dense rounds + tile-sequential tail
-    kernel), "flagtail" (tiledtail + exact per-lane resolution flags: no
-    detect bodies), "tiled" (tail kernel alone), "hybrid" (dense doubling rounds
-    while the moving set is large, then sort-extract + sparse pointer
-    chase + sort-restore; see the inline analysis), "plain" (per-round
-    dispatched doubling to the fixed point), "kernel" (fused mega-kernel),
-    "stable", "windowed" (windowed prefix rounds), or "xla"; identical
-    results. fields: "auto"/"xla" (fused XLA arithmetic) or "kernel"
-    (Pallas; measured slower, kept selectable). collapse_runs: arithmetic
-    periodic-run collapse before doubling (A/B knob).
+                    resolve: str = "hybrid"):
+    """Decode one fragment. c: (W,) uint8 zero-padded; clen/ulen scalars.
+    resolve: copy-chain strategy — "hybrid" (dense doubling rounds while
+    the moving set is large, then sort-extract + sparse pointer chase +
+    sort-restore; see the inline analysis) or "plain" (dense doubling to
+    the fixed point); identical results.
     Returns (out (65536,) uint8, ok bool)."""
-    if resolve == "auto":
-        # TPU: adaptive dense rounds + the tile-sequential tail kernel
-        # (same-session A/B on v5e, us/frag: mtg 698 vs 863, repeating 511
-        # vs 672, random 424 vs 423, google-mtg streams 748 — see
-        # ops/pallas/tiledres.py). CPU keeps the sort-based hybrid (the
-        # kernel only runs interpreted there).
-        resolve = "tiledtail" if _on_tpu() else "hybrid"
-    lit_out, src, ok = parse_transport(c, clen, ulen, fields, collapse_runs)
+    lit_out, src, ok = parse_transport(c, clen, ulen)
     oiota = jnp.arange(OUT, dtype=jnp.int32)
 
     # Pointer doubling to the fixed point (depth <= 65536 => <= 16 rounds;
-    # chains always terminate: copy sources are strictly behind). Measured
-    # on v5e, the plain dispatched per-round gather with idempotence early
-    # exit beats both fusion attempts: the single mega-kernel ("kernel",
-    # 2.30 vs 1.82 ms/block — serial in-kernel tile loop forfeits Mosaic
-    # grid pipelining) and per-tile stability skipping ("stable", 2.17 vs
-    # 1.70 — unresolved positions are scattered, so tiles rarely go fully
-    # stable and the flags are pure overhead). Both remain selectable and
-    # tested. The effective lever was ENCODE-side chain flattening
-    # (encode._flat_gate), which cut the rounds themselves.
-    if resolve == "tiled":
-        # Tile-sequential resolve + byte gather in one kernel (see
-        # ops/pallas/tiledres.py): pointers strictly decrease, so 4 K tiles
-        # processed left-to-right need only local doubling plus one
-        # absorbing byte gather from the resolved prefix — no global
-        # rounds, no sparse phase, hard 13-round local bound.
-        from .pallas import tiledres
-        out = tiledres.resolve_tiled(lit_out, src).astype(jnp.uint8)
-    elif resolve == "tiledtail":
-        # Adaptive dense doubling rounds while the moving set is large,
-        # then the tile-sequential kernel finishes: its serial local-round
-        # budget shrinks with the remaining chain structure (not just the
-        # remaining COUNT, which is what the sparse chase needed), it
-        # replaces both extraction sorts, the pointer chase AND the final
-        # byte gather, and it is exact with a hard bound for any stream —
-        # no convergence fallback. No mandatory opening rounds either:
-        # streams that resolve instantly (random; repeating after run
-        # collapse) exit after one round straight into a near-trivial tail.
-        from .pallas import tiledres
-
-        def dense_cond(c):
-            _s, cnt, it = c
-            return (cnt > TAIL_CAP) & (it < 16)
-
-        def dense_body(c):
-            s, _cnt, it = c
-            s2 = _gather_out(s, s)
-            return s2, jnp.sum((s2 != s).astype(jnp.int32)), it + 1
-
-        src, cnt, _ = jax.lax.while_loop(
-            dense_cond, dense_body, (src, jnp.int32(OUT + 1), jnp.int32(0)))
-        out = tiledres.resolve_tiled(
-            lit_out, src, resolved=cnt == 0,
-            tile=TAIL_TILE, variant=TAIL_VARIANT).astype(jnp.uint8)
-    elif resolve == "depthtail":
-        # Depth-hinted tail (the framed 0x81 sidecar, sidecar.build_depth):
-        # identical dense rounds, then exactly depths[t] local rounds per
-        # tile — no detect body, no flag plane (tail 421 -> 328.5 us/frag
-        # measured on mtg, r4_depthtail3). depths MUST each be >= the
-        # tile's true local depth for THIS pipeline (tail_cap/tile/
-        # collapse); an under-declared hint yields wrong bytes, which the
-        # framed chunk CRC catches (framing falls back to the normal
-        # path) — raw streams cannot carry hints, so this mode is only
-        # reachable through the framed container's CRC gate.
-        from .pallas import tiledres
-
-        def dense_cond(c):
-            _s, cnt, it = c
-            return (cnt > TAIL_CAP) & (it < 16)
-
-        def dense_body(c):
-            s, _cnt, it = c
-            s2 = _gather_out(s, s)
-            return s2, jnp.sum((s2 != s).astype(jnp.int32)), it + 1
-
-        src, _cnt, _ = jax.lax.while_loop(
-            dense_cond, dense_body, (src, jnp.int32(OUT + 1), jnp.int32(0)))
-        out = tiledres.resolve_tiled_depth(
-            lit_out, src, depths, tile=HINT_TILE).astype(jnp.uint8)
-    elif resolve == "flagtail":
-        # tiledtail + exact per-lane resolution flags: the round-3 census
-        # measured one quiet DETECT body per tile (16 x 5.6 us/frag — the
-        # while loop only learns it is done by observing a no-move round).
-        # Flags f[i] = litv[s[i]] ("my pointer is at a root") terminate
-        # each tile's loop on CURRENT state after exactly its productive
-        # depth. litv (root positions = fixpoints of the one-step map) is
-        # free here (src == i); the init gather f = litv[s_exit] is made
-        # ~16x cheaper than a full-range byte gather by packing litv
-        # 16-per-u16 word (4096-row table) and extracting the bit with an
-        # elementwise variable shift. Maintenance inside the tail kernel
-        # is exact by construction (tiledres._make_kernel_flag).
-        from .pallas import tiledres
-
-        litv = (src == oiota).astype(jnp.int32)
-
-        def dense_cond(c):
-            _s, cnt, it = c
-            return (cnt > TAIL_CAP) & (it < 16)
-
-        def dense_body(c):
-            s, _cnt, it = c
-            s2 = _gather_out(s, s)
-            return s2, jnp.sum((s2 != s).astype(jnp.int32)), it + 1
-
-        src, _cnt, _ = jax.lax.while_loop(
-            dense_cond, dense_body, (src, jnp.int32(OUT + 1), jnp.int32(0)))
-        if _on_tpu():
-            words = jnp.sum(
-                litv.reshape(OUT // 16, 16)
-                << jnp.arange(16, dtype=jnp.int32)[None, :], axis=-1)
-            w = pallas_gather.gather_block(words, src >> 4, limbs=2)
-            flags = (w >> (src & 15)) & 1
-        else:
-            flags = litv[src]
-        out = tiledres.resolve_tiled_flag(
-            lit_out, src, flags, tile=TAIL_TILE).astype(jnp.uint8)
-    elif resolve == "paratail":
-        # Hoisted-locals variant of tiledtail: the tail kernel's serial
-        # (tile x local-round) loop pays the ~8 us in-kernel one-hot-op
-        # floor per round per tile; local rounds of DIFFERENT tiles are
-        # independent, so they run here as dispatched, Mosaic-pipelined
-        # grid passes over all tiles at once (ops/pallas/localround.py —
-        # tile-diagonal one-hots, 1/16 of a dense round's MAC/build work),
-        # and the tail kernel runs absorbs only (resolved=True: in-tile
-        # lanes are at in-tile literals whose P rows are still literal
-        # when their tile absorbs; out-of-tile lanes read final P rows).
-        # Optional opening dense rounds (PARA_CAP < 65536) shrink deep
-        # in-tile chains before the local rounds take over.
-        from .pallas import localround, tiledres
-
-        def dense_cond(c):
-            _s, cnt, it = c
-            return (cnt > PARA_CAP) & (it < 16)
-
-        def dense_body(c):
-            s, _cnt, it = c
-            s2 = _gather_out(s, s)
-            return s2, jnp.sum((s2 != s).astype(jnp.int32)), it + 1
-
-        src, cnt, _ = jax.lax.while_loop(
-            dense_cond, dense_body, (src, jnp.int32(OUT + 1), jnp.int32(0)))
-
-        def loc_cond(c):
-            _s, moved, it = c
-            return moved & (it < 14)
-
-        def loc_body(c):
-            s, _m, it = c
-            s2 = localround.local_round(s, PARA_TILE)
-            return s2, jnp.any(s2 != s), it + 1
-
-        src, _, _ = jax.lax.while_loop(
-            loc_cond, loc_body, (src, cnt != 0, jnp.int32(0)))
-        out = tiledres.resolve_tiled(
-            lit_out, src, resolved=jnp.bool_(True),
-            tile=PARA_TILE, variant=TAIL_VARIANT).astype(jnp.uint8)
-    elif resolve == "kernel":
-        from .pallas import resolve as pallas_resolve
-        out = pallas_resolve.resolve_block(lit_out, src).astype(jnp.uint8)
-    elif resolve == "stable" and _on_tpu():
-        from .pallas import doubling
-
-        def _cond(c):
-            s, st, it = c
-            return (it < 16) & ~jnp.all(st == 1)
-
-        def _body(c):
-            s, st, it = c
-            s2, st2 = doubling.doubling_round(s, st)
-            return s2, st2, it + 1
-
-        src, _, _ = jax.lax.while_loop(
-            _cond, _body,
-            (src, jnp.zeros(doubling.TILES, jnp.int32), jnp.int32(0)))
-        out = _gather_out(lit_out, src, limbs=1).astype(jnp.uint8)
-    elif resolve == "auto" or resolve == "hybrid":
+    # chains always terminate: copy sources are strictly behind).
+    if resolve == "hybrid":
         # Dense-then-sparse doubling. Measured depth distribution on text
         # (mtg, flattened streams): ~46% of bytes sit on chains deeper than
         # 8, so doubling must run dense while the unresolved set is large —
@@ -494,28 +201,9 @@ def decode_fragment(c: jax.Array, clen: jax.Array, ulen: jax.Array,
         # every chase step advances 2^dense_rounds hops), and restore with
         # one more sort. Streams that resolve in <= 2 rounds (random;
         # repeating after run collapse) never enter the sparse while-loop.
-        CAP = SPARSE_CAP  # lanes; multiple of gather tiles (4096) and 256
-
-        if _on_tpu() and WINDOWED_OPENING:
-            # The first two doubling rounds run ANCHORED-WINDOWED (1/8 of
-            # the dense MAC work): early-round hops are local, so each
-            # target tile gathers from an 8 KB window under its maximum
-            # source (ops/pallas/gatherwin.py). An out-of-window lane does
-            # not advance and is NOT a fixpoint proof, so the moving mask
-            # carries (moved | out-of-window) — the sparse extraction's
-            # over-approximation invariant stays sound. Streams that used
-            # to early-exit (random; repeating after run collapse) win
-            # too: their mandatory 2 opening rounds get 2x cheaper.
-            from .pallas import gatherwin
-            mask = jnp.ones(OUT, jnp.bool_)
-            for _ in range(2):
-                s2, win = gatherwin.gather_window_anchored(src, src)
-                mask = (s2 != src) | (win == 0)
-                src = s2
-            cnt0, it0 = jnp.sum(mask.astype(jnp.int32)), jnp.int32(2)
-        else:
-            mask = jnp.ones(OUT, jnp.bool_)
-            cnt0, it0 = jnp.int32(OUT), jnp.int32(0)
+        CAP = SPARSE_CAP
+        mask = jnp.ones(OUT, jnp.bool_)
+        cnt0, it0 = jnp.int32(OUT), jnp.int32(0)
 
         def dense_cond(c):
             _s, _m, cnt, it = c
@@ -523,7 +211,7 @@ def decode_fragment(c: jax.Array, clen: jax.Array, ulen: jax.Array,
 
         def dense_body(c):
             s, _m, _cnt, it = c
-            s2 = _gather_out(s, s)
+            s2 = s[s]
             m = s2 != s
             return s2, m, jnp.sum(m.astype(jnp.int32)), it + 1
 
@@ -539,10 +227,6 @@ def decode_fragment(c: jax.Array, clen: jax.Array, ulen: jax.Array,
             # Unresolved-first extraction. `m` (moved last round) is a
             # sound over-approximation of "not yet at a literal": a lane
             # that did not move had a fixpoint (= literal) source already.
-            # (A rank-scatter extract + rank-gather restore was A/B'd
-            # against these two sorts and measured slightly WORSE — 1142
-            # vs 1124 us/frag on mtg: the small-output scatter's per-row
-            # loop overhead outweighs its MAC savings. Sorts stay.)
             key = jnp.where(m, oiota, oiota + (1 << 17))
             ks, qs = jax.lax.sort((key, s), num_keys=1)
             q = qs[:CAP]
@@ -550,19 +234,16 @@ def decode_fragment(c: jax.Array, clen: jax.Array, ulen: jax.Array,
             # Termination: when every pre-sparse round was a FULL dense
             # round exiting at round r with cnt <= CAP, each chase step
             # advances 2^r hops, bounding the chase at CAP/2^r + 1 <= 3073
-            # steps. The anchored-windowed opening rounds void that clean
-            # bound (a lane their windows missed advances as little as one
-            # hop per step), so convergence is CHECKED rather than assumed:
-            # a chase that hits the step cap marks the fragment not-ok and
-            # the host decoder takes it (api.decompress fallback). Real
-            # streams converge in a handful of steps either way.
+            # steps. Convergence is still CHECKED rather than assumed: a
+            # chase that hits the step cap marks the fragment not-ok and
+            # the host decoder takes it (api.decompress fallback).
             def chase_cond(cc):
                 _q, it, done = cc
                 return ~done & (it < 8192)
 
             def chase_body(cc):
                 q1, it, _done = cc
-                q2 = _gather_out(s, q1)
+                q2 = s[q1]
                 return q2, it + 1, jnp.all(q2 == q1)
 
             q, _, chase_done = jax.lax.while_loop(
@@ -581,85 +262,31 @@ def decode_fragment(c: jax.Array, clen: jax.Array, ulen: jax.Array,
             sparse_cond, sparse_body,
             (jnp.bool_(False), cnt, src, mask, jnp.bool_(True)))
         ok &= chase_ok
-        out = _gather_out(lit_out, src, limbs=1).astype(jnp.uint8)
-    else:
-        done = jnp.bool_(False)
-        if resolve == "windowed":
-            # Windowed prefix rounds (ops/pallas/gatherw.py) — measured a
-            # WASH on v5e and kept only as a selectable, tested alternative:
-            # per-round cost is grid-step/operand overhead (~110-125 us net
-            # regardless of table width: k=8 124, k=16 110, full 116), NOT
-            # the MXU contraction the window shrinks, and streams that
-            # previously early-exited (repeating/random) pay the fixed
-            # prefix. See gatherw.py for the hop-locality analysis that
-            # motivated it (94% of round-1 hops within 16 KB on mtg).
-            from .pallas import gatherw
-            tile = oiota >> 11  # 2048-element window chunks
-            for k in (8, 8, 16, 16):
-                s2 = gatherw.gather_window_block(src, src, k=k)
-                in_win = src >= ((tile - (k - 1)) << 11)
-                done = jnp.all(in_win & (s2 == src))
-                src = s2
-
+    elif resolve == "plain":
         def _cond(c):
             s, it, done = c
             return (it < 16) & ~done
 
         def _body(c):
             s, it, _ = c
-            s2 = _gather_out(s, s)
+            s2 = s[s]
             return s2, it + 1, jnp.all(s2 == s)
 
         src, _, _ = jax.lax.while_loop(
-            _cond, _body, (src, jnp.int32(0), done))
-        out = _gather_out(lit_out, src, limbs=1).astype(jnp.uint8)
+            _cond, _body, (src, jnp.int32(0), jnp.bool_(False)))
+    else:
+        raise ValueError(f"unknown resolve mode {resolve!r}")
+    out = lit_out[src].astype(jnp.uint8)
     out = jnp.where(oiota < ulen, out, 0)
     return out, ok
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("resolve", "fields", "collapse_runs"))
+@functools.partial(jax.jit, static_argnames=("resolve",))
 def decode_fragments_jit(frags: jax.Array, clens: jax.Array,
-                         ulens: jax.Array, resolve: str = "auto",
-                         fields: str = "auto", collapse_runs: bool = True):
+                         ulens: jax.Array, resolve: str = "hybrid"):
     return jax.vmap(
-        lambda c, cl, ul: decode_fragment(c, cl, ul, resolve, fields,
-                                          collapse_runs)
+        lambda c, cl, ul: decode_fragment(c, cl, ul, resolve)
     )(frags, clens, ulens)
-
-
-@functools.partial(jax.jit, static_argnames=("fields", "collapse_runs"))
-def decode_fragments_depth_jit(frags: jax.Array, clens: jax.Array,
-                               ulens: jax.Array, depths: jax.Array,
-                               fields: str = "auto",
-                               collapse_runs: bool = True):
-    """Depth-hinted batch decode: depths (B, 65536//HINT_TILE) int32 per
-    fragment (see decode_fragment resolve='depthtail')."""
-    return jax.vmap(
-        lambda c, cl, ul, d: decode_fragment(c, cl, ul, "depthtail",
-                                             fields, collapse_runs, d)
-    )(frags, clens, ulens, depths)
-
-
-@functools.partial(jax.jit, static_argnames=("fields", "collapse_runs",
-                                             "wave"))
-def decode_corpus_depth(frags: jax.Array, clens: jax.Array,
-                        ulens: jax.Array, depths: jax.Array,
-                        fields: str = "auto", collapse_runs: bool = True,
-                        wave: int = 8):
-    """Wave-mapped depth-hinted decode (the decode_corpus sibling)."""
-    nf = frags.shape[0]
-    assert nf % wave == 0, "pad the fragment count to a wave multiple"
-    fw = frags.reshape(nf // wave, wave, frags.shape[-1])
-    cw = clens.reshape(nf // wave, wave)
-    uw = ulens.reshape(nf // wave, wave)
-    dw = depths.reshape(nf // wave, wave, depths.shape[-1])
-    out, ok = jax.lax.map(
-        lambda t: jax.vmap(
-            lambda c, cl, ul, d: decode_fragment(
-                c, cl, ul, "depthtail", fields, collapse_runs, d))(*t),
-        (fw, cw, uw, dw))
-    return out.reshape(nf, -1), ok.reshape(nf)
 
 
 def fragment_table(comp: bytes, start: int, total: int):
@@ -735,9 +362,7 @@ def frag_width(clens) -> int:
     rounded up to an 8 KB bucket (few jit variants, shapes stay sort/
     scatter-tile friendly). The transport scatter and the parse scans are
     MAC/step-proportional in the fragment width, and text compresses 64 KB
-    to ~25 KB — running them at FRAG_CAP multiplies mostly zero padding.
-    Measured on v5e (us/frag, full -> sliced): mtg 1421 -> 1248, google-mtg
-    1294 -> 1130, repeating 676 -> 412 (8 KB width)."""
+    to ~25 KB — running them at FRAG_CAP multiplies mostly zero padding."""
     m = int(np.max(clens)) if len(clens) else 0
     b = 8192
     return int(min(max(b, -(-m // b) * b), FRAG_CAP))
@@ -749,12 +374,9 @@ def decode_fragments(frags, clens, ulens, cfg: CodecConfig = DEFAULT_CONFIG):
                                 jnp.asarray(clens), jnp.asarray(ulens))
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("resolve", "fields", "collapse_runs",
-                                    "wave"))
+@functools.partial(jax.jit, static_argnames=("resolve", "wave"))
 def decode_corpus(frags: jax.Array, clens: jax.Array, ulens: jax.Array,
-                  resolve: str = "auto", fields: str = "auto",
-                  collapse_runs: bool = True, wave: int = 8):
+                  resolve: str = "hybrid", wave: int = 8):
     """Whole-corpus decode as ONE dispatched program (lax.map over waves of
     `wave` vmapped fragments) — the decode sibling of encode.encode_corpus:
     same results as decode_fragments_jit, single-wave compile cost, one
@@ -766,7 +388,6 @@ def decode_corpus(frags: jax.Array, clens: jax.Array, ulens: jax.Array,
     uw = ulens.reshape(nf // wave, wave)
     out, ok = jax.lax.map(
         lambda t: jax.vmap(
-            lambda c, cl, ul: decode_fragment(c, cl, ul, resolve, fields,
-                                              collapse_runs))(*t),
+            lambda c, cl, ul: decode_fragment(c, cl, ul, resolve))(*t),
         (fw, cw, uw))
     return out.reshape(nf, -1), ok.reshape(nf)

@@ -6,8 +6,8 @@ per-cycle pointer-advance logic plays, CompressionAccelerator.scala:311-330),
 and the decoder walks the tag chain (the loop the reference never built —
 funct=1 is a stub, CompressionAccelerator.scala:385-388). Both are
 "orbit of 0 under next[i] = i + jump[i]" problems. We parallelize them with a
-two-level scheme that is TPU-friendly (no data-dependent trip counts, only
-segment-local gathers + scans):
+two-level scheme with no data-dependent trip counts, only segment-local
+gathers and scans:
 
   1. within 64-position segments, pointer-doubling computes an *exit map*
      (entry state -> exit state) for every possible entry state;
@@ -31,25 +31,12 @@ import jax.numpy as jnp
 S = 64  # segment width == MAX_COPY_LEN; the encode invariant jump <= S
 
 
-def gather_s(maps: jax.Array, idx: jax.Array, small: bool = False) -> jax.Array:
+def gather_s(maps: jax.Array, idx: jax.Array) -> jax.Array:
     """Within-segment gather y[..., g, t] = maps[..., g, idx[..., g, t]].
 
-    TPU has no vector-gather unit; XLA lowers take_along_axis to a ~700us/
-    64K-block scalar path. A one-hot matmul is ~10x faster; XLA lowers this
-    f32 einsum exactly for the value ranges here (verified on-chip: decode
-    exit states beyond 2^8 round-trip bit-exactly; a 64-way select chain was
-    tried instead and measured 3x slower due to 64-lane column broadcasts).
-
-    small=True feeds the one-hot AND the maps as bf16 — exact only when
-    every map value < 256 (the ENCODE commit invariant: jump <= 64 bounds
-    exit states at 127), and halves the HBM traffic of the map rounds,
-    which are the commit stage's dominant cost."""
-    dt = jnp.bfloat16 if small else jnp.float32
-    oh = (idx[..., :, :, None] ==
-          jax.lax.broadcasted_iota(jnp.int32, (1, 1, S), 2)).astype(dt)
-    out = jnp.einsum("...ts,...s->...t", oh, maps.astype(dt),
-                     preferred_element_type=jnp.float32)
-    return out.astype(maps.dtype)
+    A native integer gather: exact for every value, including the decode
+    parse's exit states, which reach ~64K."""
+    return jnp.take_along_axis(maps, idx, axis=-1)
 
 
 def ffill(mask: jax.Array, vals: jax.Array) -> jax.Array:
@@ -88,15 +75,12 @@ def next_element_start(flags: jax.Array, default: int) -> jax.Array:
     return out.at[..., -1].set(jnp.int32(default))
 
 
-def segment_exit_maps(jump: jax.Array, bounded: bool = False) -> jax.Array:
+def segment_exit_maps(jump: jax.Array) -> jax.Array:
     """Within-segment chase tables.
 
     jump: (..., N) int32, every entry >= 1. Returns (..., N//S, S) exit maps:
     entry state d in [0, S) -> exit state (distance past segment end, >= 0;
     values >= S occur when a single jump overshoots the next segment).
-    bounded=True asserts the encode invariant jump <= S, so every chase
-    value stays < 2S = 128 and the map rounds run bf16 (gather_s small
-    path — exact below 256, half the HBM traffic).
     """
     n = jump.shape[-1]
     seg = jump.reshape(*jump.shape[:-1], n // S, S)
@@ -106,7 +90,7 @@ def segment_exit_maps(jump: jax.Array, bounded: bool = False) -> jax.Array:
     # min jump 1 => at most S hops => 6 rounds suffice.
     for _ in range(6):
         idx = jnp.clip(t, 0, S - 1)
-        t = jnp.where(t >= S, t, gather_s(t, idx, small=bounded))
+        t = jnp.where(t >= S, t, gather_s(t, idx))
     return t - S
 
 
@@ -144,90 +128,10 @@ def entry_states_sequential(exit_maps: jax.Array) -> jax.Array:
         return nxt, d
 
     # unroll=4: each scan step is a tiny S-wide take_along_axis, so loop
-    # bookkeeping is a measurable fraction (243 -> 226 us/block A/B'd on
-    # v5e at unroll 1 vs 4; 8 and 16 gave no further gain).
+    # bookkeeping would otherwise be a large share of the step.
     _, entries = jax.lax.scan(step, jnp.zeros(exit_maps.shape[:-2], jnp.int32),
                               maps, unroll=4)
     return jnp.moveaxis(entries, 0, -1)  # (..., NSEG)
-
-
-#: Segments per group in the two-level entry-state scan. The group-table
-#: domain must equal the group width (G*S) so that any entry state >= the
-#: domain provably skips the whole group (d -> d - G*S); G=4 gives 256-entry
-#: tables and quarters the sequential scan length. Measured SLOWER than the
-#: plain sequential scan on v5e (0.364 vs 0.287 ms/block within one job):
-#: the D-domain one-hot compositions materialize (ngrp, D, D) f32 one-hots
-#: (~70 MB per composition level) and that HBM traffic dwarfs the 816 saved
-#: scan steps, whose per-step cost is a tiny S-wide take_along_axis. Kept
-#: selectable + equality-tested as a recorded negative result.
-G = 4
-D = G * S  # 256
-
-
-def _gather_d(maps: jax.Array, idx: jax.Array) -> jax.Array:
-    """y[..., g, t] = maps[..., g, idx[..., g, t]] over a D-wide domain
-    (the D-domain sibling of gather_s; same one-hot-matmul rationale)."""
-    oh = (idx[..., :, :, None] ==
-          jax.lax.broadcasted_iota(jnp.int32, (1, 1, D), 2)).astype(jnp.float32)
-    out = jnp.einsum("...ts,...s->...t", oh, maps.astype(jnp.float32),
-                     preferred_element_type=jnp.float32)
-    return out.astype(maps.dtype)
-
-
-def entry_states_grouped(exit_maps: jax.Array) -> jax.Array:
-    """Entry state per segment, two-level: parallel within-group composition
-    (G segments -> one D-domain table) + a sequential lax.scan over groups
-    (NSEG/G steps instead of NSEG — the decode parse's serial bottleneck).
-
-    Equivalent to entry_states_sequential for arbitrary jumps >= 1: a group
-    table h over domain [0, D) answers any entry state < D exactly, and an
-    entry state >= D skips the whole group (width D) arithmetically.
-    """
-    *batch, nseg, _ = exit_maps.shape
-    ngrp = nseg // G
-    local = jnp.arange(D, dtype=jnp.int32)
-
-    # Extend each segment's S-entry table to domain D: entering at d >= S
-    # skips the segment (exit d - S, states are distances past segment end).
-    seg = jnp.where(local < S,
-                    jnp.concatenate(
-                        [exit_maps,
-                         jnp.zeros((*batch, nseg, D - S), jnp.int32)], -1),
-                    local - S)
-    seg = seg.reshape(*batch, ngrp, G, D)
-
-    # Compose left-to-right within each group; keep every prefix table so
-    # per-segment entries fall out of the group entry below. Composing with
-    # a SINGLE segment on the right keeps the pass-through rule exact.
-    prefixes = [seg[..., 0, :]]
-    for j in range(1, G):
-        h = prefixes[-1]
-        nxt = seg[..., j, :]  # (..., ngrp, D); domain lookups are [0, S)
-        thru = _gather_d(nxt, jnp.clip(h, 0, D - 1))
-        prefixes.append(jnp.where(h < S, thru, h - S))
-
-    # Sequential scan over groups with the full-group table.
-    maps = jnp.moveaxis(prefixes[-1], -2, 0)  # (ngrp, ..., D)
-
-    def step(d, m):
-        idx = jnp.clip(d, 0, D - 1)[..., None]
-        thru = jnp.take_along_axis(m, idx, axis=-1)[..., 0]
-        return jnp.where(d >= D, d - D, thru), d
-
-    _, group_entries = jax.lax.scan(
-        step, jnp.zeros(exit_maps.shape[:-2], jnp.int32), maps)
-    ge = jnp.moveaxis(group_entries, 0, -1)  # (..., ngrp)
-
-    # Per-segment entries: the group entry, then each prefix table evaluated
-    # at it (entry of segment j+1 = exit of the first j+1 segments); entries
-    # >= D skip those segments arithmetically.
-    cols = [ge]
-    gidx = jnp.clip(ge, 0, D - 1)[..., None]
-    for j in range(G - 1):
-        thru = jnp.take_along_axis(prefixes[j], gidx, axis=-1)[..., 0]
-        cols.append(jnp.where(ge >= D, ge - (j + 1) * S, thru))
-    entries = jnp.stack(cols, axis=-1)  # (..., ngrp, G)
-    return entries.reshape(*batch, nseg)
 
 
 def committed_from_entries(jump: jax.Array, entry: jax.Array) -> jax.Array:
@@ -244,132 +148,20 @@ def committed_from_entries(jump: jax.Array, entry: jax.Array) -> jax.Array:
         com = d == 0
         return jnp.where(com, j, d) - 1, com
 
-    # unroll: same rationale as the entry scan above — each step is tiny,
-    # loop bookkeeping dominates (A/B'd on v5e within one job).
+    # unroll: same rationale as the entry scan above — each step is tiny.
     _, flags = jax.lax.scan(step, entry, cols, unroll=4)
     return jnp.moveaxis(flags, 0, -1).reshape(jump.shape)
 
 
-def entry_states_tree(exit_maps: jax.Array, levels: int = 3) -> jax.Array:
-    """Entry states via a bounded-domain halving tree (jump <= S only).
-
-    Composes `levels` pairwise levels of exit maps — the bounded encode
-    invariant keeps every value < S, so the state DOMAIN stays S=64 at
-    every level (unlike the G-grouped variant above, whose D=G*S domain
-    growth made it lose) and each level halves the map count, bounding
-    total compose work at ~one level's worth — then runs the sequential
-    scan over the NSEG >> levels coarse segments and descends: the odd
-    child's entry is the even child's exit map evaluated at the even
-    child's entry. Measured on v5e (ultra jump data, B=24): L=3 saves
-    ~15 us/block over the plain sequential scan (L=0); L=2-6 are within
-    3 us of each other, so the tail of the sweep is flat.
-    """
-    maps = exit_maps
-    stack = []
-    for _ in range(levels):
-        f = maps[..., 0::2, :]
-        g = maps[..., 1::2, :]
-        stack.append(f)
-        maps = gather_s(g, jnp.clip(f, 0, S - 1), small=True)
-    e = entry_states_sequential(maps)
-    for f in reversed(stack):
-        thru = gather_s(f, jnp.clip(e, 0, S - 1)[..., None],
-                        small=True)[..., 0]
-        e = jnp.stack([e, thru], axis=-1).reshape(*e.shape[:-1],
-                                                  e.shape[-1] * 2)
-    return e
-
-
-def commit_bounded(jump: jax.Array, sequential: bool = False,
-                   tree_levels: int = 0) -> jax.Array:
-    """Committed flags for bounded jumps (1 <= jump <= S). Encode path.
-
-    sequential=True runs the entry-state pass as the NSEG-step lax.scan
-    instead of the log-depth associative composition: the composition's
-    levels move (NSEG, S, S) f32 one-hots through HBM while the
-    sequential steps are S-wide take_along_axis — measured 0.23 vs 0.27
-    ms/block on v5e (same job, both directions repeated). tree_levels>0
-    (the TPU encode default) composes that many bounded-domain pairwise
-    levels first (entry_states_tree) — the measured best of the three.
-    """
-    maps = segment_exit_maps(jump, bounded=True)
-    if tree_levels > 0:
-        return committed_from_entries(
-            jump, entry_states_tree(maps, tree_levels))
-    if sequential:
-        return committed_from_entries(jump, entry_states_sequential(maps))
+def commit_bounded(jump: jax.Array) -> jax.Array:
+    """Committed flags for bounded jumps (1 <= jump <= S). Encode path:
+    the log-depth associative composition of the segment exit maps."""
+    maps = segment_exit_maps(jump)
     return committed_from_entries(jump, entry_states_bounded(maps))
 
 
-def entry_states_tree_general(exit_maps: jax.Array,
-                              levels: int = 2) -> jax.Array:
-    """Entry states for ARBITRARY jumps via a halving tree of
-    concatenated pair tables.
-
-    The encode-side tree (entry_states_tree) relies on the bounded
-    domain; the G-grouped decode variant lost because extending the
-    domain to D = G*S made its compositions move (ngrp, D, D) one-hots.
-    This form avoids domain growth a third way: a PAIR of segment maps
-    (f earlier, g later, each width W) is answered exactly by the
-    CONCATENATED table [h | g] of width 2W, where
-    h[d] = g[f[d]] if f[d] < W else f[d] - W (both already "distance
-    past the pair's end"), and an entry >= 2W skips the pair
-    arithmetically — so each level halves the sequential-scan length,
-    table STORAGE stays nseg*S, and the only new cost is one
-    (m/2, W, W) one-hot compose per level (f32: decode exit states
-    reach 64K). Entries descend through the stashed f tables exactly as
-    in the bounded tree. Equivalent to entry_states_sequential for any
-    jump >= 1 (tests assert it)."""
-    maps = exit_maps
-    w = S
-    stack = []
-    for _ in range(levels):
-        f = maps[..., 0::2, :]
-        g = maps[..., 1::2, :]
-        stack.append((f, w))
-        oh = (jnp.clip(f, 0, w - 1)[..., :, :, None] ==
-              jax.lax.broadcasted_iota(
-                  jnp.int32, (1, 1, w), 2)).astype(jnp.float32)
-        thru = jnp.einsum("...ts,...s->...t", oh, g.astype(jnp.float32),
-                          preferred_element_type=jnp.float32
-                          ).astype(exit_maps.dtype)
-        h = jnp.where(f < w, thru, f - w)
-        maps = jnp.concatenate([h, g], axis=-1)
-        w *= 2
-
-    coarse = jnp.moveaxis(maps, -2, 0)  # (nseg/2^levels, ..., w)
-
-    def step(d, t):
-        idx = jnp.clip(d, 0, w - 1)[..., None]
-        thru = jnp.take_along_axis(t, idx, axis=-1)[..., 0]
-        return jnp.where(d >= w, d - w, thru), d
-
-    _, entries = jax.lax.scan(
-        step, jnp.zeros(exit_maps.shape[:-2], jnp.int32), coarse, unroll=4)
-    e = jnp.moveaxis(entries, 0, -1)  # (..., nseg/2^levels)
-    for f, fw in reversed(stack):
-        thru = jnp.take_along_axis(
-            f, jnp.clip(e, 0, fw - 1)[..., None], axis=-1)[..., 0]
-        odd = jnp.where(e < fw, thru, e - fw)
-        e = jnp.stack([e, odd], axis=-1).reshape(*e.shape[:-1],
-                                                 e.shape[-1] * 2)
-    return e
-
-
-def commit_general(jump: jax.Array, grouped: bool = False,
-                   tree_levels: int = 0) -> jax.Array:
-    """Committed flags for arbitrary jumps >= 1. Decode tag-parse path.
-
-    grouped=True selects the two-level grouped entry scan (NSEG/G sequential
-    steps) — measured slower on v5e (see note at G). tree_levels > 0 runs
-    the concatenated halving tree (entry_states_tree_general) — each
-    level halves the sequential entry-scan length at one bounded one-hot
-    compose. Default is the plain sequential scan.
-    """
+def commit_general(jump: jax.Array) -> jax.Array:
+    """Committed flags for arbitrary jumps >= 1. Decode tag-parse path:
+    a sequential scan over segments (literal runs may skip many)."""
     maps = segment_exit_maps(jump)
-    if tree_levels > 0 and maps.shape[-2] % (1 << tree_levels) == 0:
-        return committed_from_entries(
-            jump, entry_states_tree_general(maps, tree_levels))
-    if grouped and maps.shape[-2] % G == 0:
-        return committed_from_entries(jump, entry_states_grouped(maps))
     return committed_from_entries(jump, entry_states_sequential(maps))

@@ -2,7 +2,7 @@
 
 BASELINE config 5 is a 2+-host streaming encode: blocks data-parallel over
 the global device set, the per-wave (offset, length) manifest all-gathered
-over DCN, host 0 assembling output in order. The reference has no analogue
+across hosts, host 0 assembling output in order. The reference has no analogue
 (single RoCC on a single tile, SURVEY.md §2.6); this is new capability.
 
 This single-host dev environment cannot execute a 2-host run; the layer is
@@ -27,8 +27,8 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Bring up the multi-host runtime (idempotent).
 
-    With no arguments JAX autodetects the cluster (TPU pod metadata); the
-    explicit form suits manual bring-up:
+    With no arguments JAX autodetects the cluster where a cluster
+    environment describes it; otherwise pass the explicit form:
         init_distributed("host0:8476", num_processes=2, process_id=rank)
     """
     # Idempotency must not touch the backend: jax.process_count() would
@@ -57,8 +57,8 @@ def compress_multihost(src, dst, total_len: int,
     Every process must call this collectively with the same arguments;
     `src` must yield identical bytes on every process (shared filesystem),
     and only process 0's `dst` receives output (others may pass a sink).
-    The wave manifest is replicated by the encode output sharding — that
-    all-gather over ICI/DCN is the only cross-host communication.
+    The wave manifest is gathered to every host after each wave
+    (shard.fetch_global) — the only cross-host communication.
     """
     mesh = global_mesh()
     stats = streaming.compress_stream(

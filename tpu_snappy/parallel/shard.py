@@ -4,9 +4,12 @@ Blocks shard across chips on the `dp` axis; per-block work (sort-based
 matching, commit scan, emission) stays chip-local — mirroring the
 reference's per-job hash-table locality (clearPresent per job,
 MatchFinder.scala:55) — and the variable-length results are reassembled in
-original block order from an (offset, length) manifest. The manifest gather
-is the only cross-chip communication (XLA lowers it to an all-gather over
-ICI/DCN from the output shardings).
+original block order from an (offset, length) manifest. The sharded
+programs hold no collective: every output, the manifest included, stays
+sharded on its device and the host gathers it (fetch_global). Programs
+without collectives need no NCCL clique, so two of them in flight at once
+(a wave's encode beside the previous wave's assembly) cannot wait on each
+other.
 """
 
 from __future__ import annotations
@@ -32,16 +35,15 @@ def pad_count(count: int, n_devices: int) -> int:
 #: Blocks/fragments per vmapped wave inside the sharded programs. The jit
 #: below traces ONE wave regardless of total block count (shard_map gives
 #: each device a local lax.map over its waves), so compile cost is
-#: block-count-independent — the DP sibling of api.API_WAVE (a 48-block
-#: flat vmap graph exceeded 10 min of XLA compile on a remote backend).
+#: block-count-independent — the DP sibling of api.API_WAVE.
 DP_WAVE = 8
 
 
 @functools.lru_cache(maxsize=8)
 def _encode_fn(mesh, cfg: CodecConfig, wave: int = DP_WAVE):
-    """Jitted sharded encode: payload stays block-sharded on its device
-    (each device runs a bounded-compile lax.map over its local waves); the
-    length manifest is replicated (the all-gather)."""
+    """Jitted sharded encode: payload and length manifest stay
+    block-sharded on their device (each device runs a bounded-compile
+    lax.map over its local waves)."""
     from jax.sharding import PartitionSpec as P
     axis = cfg.dp_axis
     local = jax.shard_map(
@@ -51,7 +53,7 @@ def _encode_fn(mesh, cfg: CodecConfig, wave: int = DP_WAVE):
     return jax.jit(
         local,
         out_shardings=(meshlib.block_sharding(mesh, axis),
-                       meshlib.replicated(mesh)),
+                       meshlib.scalar_sharding(mesh, axis)),
     )
 
 
@@ -62,7 +64,7 @@ def _encode_fn_compact(mesh, cfg: CodecConfig, wave: int = DP_WAVE):
     (ops_encode.compact_blocks — the RTL's store-bank drain role), so
     assembly fetches per-device dense payload segments instead of
     (B, capacity) padded rows. Returns (dense (NB*cap,) device-sharded,
-    lens (NB,) replicated)."""
+    lens (NB,) device-sharded)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
     axis = cfg.dp_axis
 
@@ -77,7 +79,7 @@ def _encode_fn_compact(mesh, cfg: CodecConfig, wave: int = DP_WAVE):
     return jax.jit(
         fn,
         out_shardings=(NamedSharding(mesh, P(cfg.dp_axis)),
-                       meshlib.replicated(mesh)),
+                       NamedSharding(mesh, P(cfg.dp_axis))),
     )
 
 
@@ -87,8 +89,14 @@ def assemble_compact(dense, lens_np: np.ndarray, nblocks: int, mesh,
     sliced to their exact local totals (bucketed slice shapes keep the
     fetch-program count bounded). Returns the per-device payload pieces
     in block order. Multi-process runs gather the global dense first
-    (fetch_global) — the padded transfer is the DCN collective's job;
-    single-process fetches only ceil(total/bucket) of each segment."""
+    (fetch_global) — the padded transfer is the collective's job;
+    single-process fetches only ceil(total/bucket) of each segment.
+
+    Each segment is sliced from its own device's shard: a slice of the
+    global array would be a multi-device program, and callers assemble
+    on a worker thread while the next wave's sharded program (with its
+    all-gather) is dispatched from another, which can order the two
+    collectives differently on different devices and deadlock."""
     ndev = mesh.devices.size
     per = len(lens_np) // ndev
     pieces = []
@@ -101,57 +109,33 @@ def assemble_compact(dense, lens_np: np.ndarray, nblocks: int, mesh,
             total = int(lens_np[d * per: d * per + nb_d].sum())
             pieces.append(dn[d * per * cap: d * per * cap + total].tobytes())
         return pieces
+    shards = sorted(dense.addressable_shards,
+                    key=lambda sh: sh.index[0].start or 0)
     for d in range(ndev):
         nb_d = min(max(nblocks - d * per, 0), per)
         if nb_d == 0:
             break
         total = int(lens_np[d * per: d * per + nb_d].sum())
         k = min(-(-total // fetch_bucket) * fetch_bucket, per * cap)
-        seg = np.asarray(dense[d * per * cap: d * per * cap + k])
+        seg = np.asarray(shards[d].data[:k])
         pieces.append(seg[:total].tobytes())
     return pieces
 
 
 @functools.lru_cache(maxsize=8)
-def _decode_sidecar_fn(mesh, axis: str = "dp", wave: int = DP_WAVE,
-                       wrows: int | None = None):
+def _decode_sidecar_fn(mesh, axis: str = "dp", wave: int = DP_WAVE):
     """Sharded sidecar fast-decode (framing 0x80 chunks): the per-chunk
     scatter+ffill+gather pipeline is chunk-independent like everything
-    else, so it shards DP identically to _decode_fn. wrows selects the
-    parent-direct mode (sidecar._decode_one)."""
+    else, so it shards DP identically to _decode_fn."""
     from jax.sharding import PartitionSpec as P
 
     from .. import sidecar as sc
     local = jax.shard_map(
-        lambda e, s, v, u: sc.decode_corpus_sidecar(e, s, v, u, wave=wave,
-                                                    wrows=wrows),
+        lambda e, s, v, u: sc.decode_corpus_sidecar(e, s, v, u, wave=wave),
         mesh=mesh, in_specs=(P(axis, None), P(axis, None), P(axis, None),
                              P(axis)),
-        out_specs=(P(axis, None), P(axis)), check_vma=False)
-    return jax.jit(
-        local,
-        out_shardings=(meshlib.block_sharding(mesh, axis),
-                       meshlib.replicated(mesh)),
-    )
-
-
-@functools.lru_cache(maxsize=8)
-def _decode_depth_fn(mesh, axis: str = "dp", wave: int = DP_WAVE):
-    """Sharded depth-hinted decode (framing 0x81 chunks): the normal
-    fragment decoder with per-tile tail round counts (decode.py
-    resolve='depthtail'), chunk-independent like everything else."""
-    from jax.sharding import PartitionSpec as P
-    local = jax.shard_map(
-        lambda f, c, u, d: ops_decode.decode_corpus_depth(f, c, u, d,
-                                                          wave=wave),
-        mesh=mesh, in_specs=(P(axis, None), P(axis), P(axis),
-                             P(axis, None)),
-        out_specs=(P(axis, None), P(axis)), check_vma=False)
-    return jax.jit(
-        local,
-        out_shardings=(meshlib.block_sharding(mesh, axis),
-                       meshlib.replicated(mesh)),
-    )
+        out_specs=P(axis, None), check_vma=False)
+    return jax.jit(local, out_shardings=meshlib.block_sharding(mesh, axis))
 
 
 @functools.lru_cache(maxsize=8)
@@ -164,7 +148,7 @@ def _decode_fn(mesh, axis: str = "dp", wave: int = DP_WAVE):
     return jax.jit(
         local,
         out_shardings=(meshlib.block_sharding(mesh, axis),
-                       meshlib.replicated(mesh)),
+                       meshlib.scalar_sharding(mesh, axis)),
     )
 
 
@@ -172,9 +156,9 @@ def fetch_global(x) -> np.ndarray:
     """Materialize a (possibly process-spanning) sharded array on the host.
 
     Single-process: a plain fetch. Multi-process: the payload shards live
-    on other hosts' devices, so an explicit cross-process all-gather (the
-    DCN collective of the multihost design) brings the global value to
-    every host — host 0 then assembles the stream."""
+    on other hosts' devices, so an explicit cross-process all-gather
+    brings the global value to every host — host 0 then assembles the
+    stream."""
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils
         return np.asarray(multihost_utils.process_allgather(x, tiled=True))
@@ -213,7 +197,7 @@ def encode_dp(data: bytes, mesh, cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
     # Ordered assembly on host: per-device dense payload segments (the
     # device already compacted each block to its manifest offset — no
     # per-block Python join, no padded-capacity fetch).
-    lens_np = np.asarray(out_lens)  # replicated: addressable everywhere
+    lens_np = fetch_global(out_lens)
     parts = [fmt.varint_encode(n)] + assemble_compact(
         dense, lens_np, nblocks, mesh, cfg.block_capacity)
     return b"".join(parts)
@@ -243,7 +227,7 @@ def decode_dp(comp: bytes, mesh, cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
         jax.device_put(np.asarray(ulens, np.int32),
                        meshlib.scalar_sharding(mesh, cfg.dp_axis)),
     )
-    okv = np.asarray(ok)[:nfrag]
+    okv = fetch_global(ok)[:nfrag]
     if not okv.all():
         # Fragment-granular host fallback (exotic fragments re-decode with
         # the already-decoded prefix as context; corrupt ones raise).

@@ -2,12 +2,12 @@
 
 The reference's answer to "input bigger than fast memory" is the sliding
 ring-buffer window (MemoryController.scala:184-187). Snappy's 64 KB window
-makes the TPU answer simpler: stream the input in multi-block waves, keep
+makes the device answer simpler: stream the input in multi-block waves, keep
 two waves in flight (host->device copy of wave k+1 overlaps device encode of
 wave k — the MemoryController compute/IO-overlap role), and append each
 wave's manifest-ordered output to the sink. Multi-host runs shard each wave
-over the full mesh; the per-wave manifest all-gather is the only
-synchronization point, which is also the natural resume point
+over the full mesh; the per-wave manifest gather (shard.fetch_global) is
+the only synchronization point, which is also the natural resume point
 (SURVEY.md §5 checkpoint note).
 """
 
@@ -17,7 +17,6 @@ import dataclasses
 from typing import BinaryIO, Iterator
 
 import jax
-import numpy as np
 
 from .. import format as fmt
 from ..config import CodecConfig, DEFAULT_CONFIG
@@ -55,8 +54,7 @@ def compress_stream(src: BinaryIO, dst: BinaryIO, total_len: int, mesh=None,
         mesh = meshlib.make_mesh()
     n_dev = mesh.devices.size
     if blocks_per_wave is None:
-        # Per-DEVICE batch is the VMEM-bounded knob: 24 blocks/device is
-        # the measured encode sweet spot on v5e (compile fails past ~32).
+        # Per-DEVICE batch: 24 blocks (3 jit waves of DP_WAVE) per device.
         blocks_per_wave = 24 * n_dev
     blocks_per_wave = shard.pad_count(blocks_per_wave, n_dev)
     # Per-device block count must be a whole number of jit waves (the
@@ -112,7 +110,7 @@ def compress_stream(src: BinaryIO, dst: BinaryIO, total_len: int, mesh=None,
 
 def _drain(pending, dst, stats, mesh, cap) -> None:
     dense, out_lens, nblocks, take = pending
-    lens_np = np.asarray(out_lens)  # replicated manifest
+    lens_np = shard.fetch_global(out_lens)
     # Device-compacted wave: fetch per-device dense payload segments and
     # write them straight out — no per-block Python join (the device
     # scattered every block to its manifest offset, ops/encode.py

@@ -3,7 +3,7 @@
 This is the *specification* implementation: simple, obviously correct, and
 slow. It pins the wire format before any kernel exists (SURVEY.md §7 step 1)
 and serves as one of two independent golden references for the vectorized
-JAX/Pallas codec (the other is the clean-room C++ harness under native/,
+JAX codec (the other is the clean-room C++ harness under native/,
 playing the role of the reference's tests/swcompression.cc).
 
 The greedy parse mirrors what the reference RTL implements —
@@ -24,7 +24,7 @@ def compress(data: bytes, *, dense_table: bool = True) -> bytes:
     """Greedy Snappy compression, fragment by fragment.
 
     dense_table=True inserts every scanned position into the hash table
-    (better ratio; what our TPU kernels do). dense_table=False emulates
+    (better ratio; closer to what the device matcher does). dense_table=False emulates
     software Snappy's skip acceleration on incompressible data (insertions
     get sparser as misses accumulate), useful for ratio comparisons.
     """

@@ -2,7 +2,7 @@
 
 The reference is a single-job accelerator: one RoCC `compress(src, dst)`
 command runs at a time and the core spins on the response
-(tests/compression.c:41-61). A TPU deployment serves MANY concurrent
+(tests/compression.c:41-61). A device deployment serves MANY concurrent
 callers, and the device wants fixed-shape batched work — so the serving
 layer's job is to turn an arbitrary arrival process into full waves:
 
@@ -17,9 +17,8 @@ layer's job is to turn an arbitrary arrival process into full waves:
         different kinds overlap instead of serializing on host syncs
         --per-unit results--> request assembly --> caller futures
 
-Batching is what buys throughput on TPU (the per-dispatch floor and the
-lockstep wave economics are measured in DESIGN.md); max_wait bounds the
-latency a lone request pays for it. Sub-block requests skip the queue
+Batching is what buys throughput on the device (a per-dispatch floor,
+lockstep waves); max_wait bounds the latency a lone request pays for it. Sub-block requests skip the queue
 entirely and run on the host codec inline (api.SMALL_INPUT_BYTES
 economics: a tiny job should cost microseconds, not a device wave).
 
@@ -53,12 +52,14 @@ class ServerStats:
     units: int = 0
     waves: int = 0
     wave_slots: int = 0
-    #: Dispatched waves per kind (enc/dec/scd/dcd) — the device-bound
-    #: projection multiplies these by standalone per-wave device times.
+    #: Dispatched waves per kind (enc/dec/scd).
     waves_by_kind: dict = dataclasses.field(default_factory=dict)
     #: Fragments re-decoded on the host because their device pass flagged
     #: them (fragment-granular fallback — NOT whole requests).
     spliced_fragments: int = 0
+    #: Whole streams the fragment table refused (FragmentFallback),
+    #: decoded on the host instead of the device.
+    fallback_streams: int = 0
     latencies_s: list = dataclasses.field(default_factory=list)
 
     @property
@@ -137,13 +138,13 @@ class CodecServer:
         self._max_wait = max_wait_ms / 1e3
         self._max_pending = max_pending
         self._lock = threading.Condition()
-        # Separate queues per kind: the encode, decode, sidecar-decode and
-        # depth-hinted-decode graphs differ, so a wave is single-kind —
+        # Separate queues per kind: the encode, decode and sidecar-decode
+        # graphs differ, so a wave is single-kind —
         # but waves of DIFFERENT kinds overlap on the device through the
         # depth-2 submit pipeline (_run), so kind diversity no longer
         # serializes on host syncs. Entries: (request, unit_idx, *unit).
         self._q: dict[str, deque] = {"enc": deque(), "dec": deque(),
-                                     "scd": deque(), "dcd": deque()}
+                                     "scd": deque()}
         self._closing = False
         self.stats = ServerStats()
         import jax
@@ -163,7 +164,7 @@ class CodecServer:
                               jax.device_put(l, self._sspec))
 
             def _enc_fetch(h):
-                return shard.fetch_global(h[0]), np.asarray(h[1])
+                return shard.fetch_global(h[0]), shard.fetch_global(h[1])
 
             def _dec(f, c, u):
                 return dec_fn(jax.device_put(f, self._bspec),
@@ -171,7 +172,7 @@ class CodecServer:
                               jax.device_put(u, self._sspec))
 
             def _dec_fetch(h):
-                return shard.fetch_global(h[0]), np.asarray(h[1])
+                return shard.fetch_global(h[0]), shard.fetch_global(h[1])
 
             self._enc, self._dec = _enc, _dec
             self._enc_fetch, self._dec_fetch = _enc_fetch, _dec_fetch
@@ -216,6 +217,8 @@ class CodecServer:
                                                             total)
         except ops_decode.FragmentFallback:
             from . import reference_codec
+            with self._lock:
+                self.stats.fallback_streams += 1
             return self._host(reference_codec.decompress, comp)
         except ValueError as e:
             fut: Future = Future()
@@ -265,7 +268,7 @@ class CodecServer:
         (structure + every chunk CRC). Compressed chunks batch through the
         same fragment waves as raw decode requests; chunks carrying a
         usable fast-decode sidecar take the sidecar wave kind instead
-        (scatter+ffill+gather — the 4.3x path), with the chunk CRC gating
+        (scatter+ffill+gather), with the chunk CRC gating
         the result either way."""
         from . import framing
         from . import sidecar as sc
@@ -279,25 +282,20 @@ class CodecServer:
             return fut
         datach = []   # (type, body) data chunks, in order
         side = []     # parallel: sidecar payload bytes or None
-        depth = []    # parallel: depth-hint payload bytes or None
-        pend_s = pend_d = None
+        pend_s = None
         for t, off, ln in chunks:
             body = framed[off: off + ln]
             if t == framing.CHUNK_SIDECAR:
                 pend_s = body
-            elif t == framing.CHUNK_DEPTH:
-                pend_d = body
             elif t == framing.CHUNK_COMPRESSED:
                 datach.append((t, body))
                 side.append(pend_s)
-                depth.append(pend_d)
-                pend_s = pend_d = None
+                pend_s = None
             elif t == framing.CHUNK_UNCOMPRESSED:
                 datach.append((t, body))
                 side.append(None)
-                depth.append(None)
-                pend_s = pend_d = None
-        dec_units, scd_units, dcd_units, over_ids = [], [], [], []
+                pend_s = None
+        dec_units, scd_units, over_ids = [], [], []
         for i, (t, body) in enumerate(datach):
             if t != framing.CHUNK_COMPRESSED:
                 continue
@@ -318,15 +316,8 @@ class CodecServer:
                 parsed = sc.parse(side[i])
                 if parsed is not None:
                     sv = sc.prep_parent(*parsed, int(ulen))
-            dh = None
-            if (sv is None and depth[i] is not None
-                    and len(payload) <= ops_decode.FRAG_CAP):
-                dh = sc.parse_depth(depth[i])
             if sv is not None:
-                scd_units.append((i, payload, int(ulen), sv[0], sv[1],
-                                  sv[2]))
-            elif dh is not None:
-                dcd_units.append((i, payload, len(payload), int(ulen), dh))
+                scd_units.append((i, payload, int(ulen), sv[0], sv[1]))
             elif len(payload) > ops_decode.FRAG_CAP:
                 # Spec-valid but beyond the device fragment capacity (an
                 # adversarial all-literal 64 KB chunk compresses to
@@ -337,8 +328,7 @@ class CodecServer:
                 over_ids.append(i)
             else:
                 dec_units.append((i, payload, len(payload), int(ulen)))
-        n_units = (len(dec_units) + len(scd_units) + len(dcd_units)
-                   + len(over_ids))
+        n_units = len(dec_units) + len(scd_units) + len(over_ids)
         req = _Request("decf", max(1, n_units),
                        sum(len(b) - 4 for _t, b in datach))
         req.chunks = datach
@@ -351,11 +341,10 @@ class CodecServer:
             return req.future
         req.oks = [True] * n_units
         req.chunk_ids = ([u[0] for u in dec_units]
-                         + [u[0] for u in scd_units]
-                         + [u[0] for u in dcd_units] + over_ids)
+                         + [u[0] for u in scd_units] + over_ids)
         # Settle oversize chunks up front (host path at assembly); when
         # every unit is oversize this resolves the request inline.
-        base = len(dec_units) + len(scd_units) + len(dcd_units)
+        base = len(dec_units) + len(scd_units)
         for j in range(len(over_ids)):
             req.oks[base + j] = False
             if req.deliver(base + j, b""):
@@ -371,14 +360,10 @@ class CodecServer:
             for j, (_i, payload, cl, ul) in enumerate(dec_units):
                 self._q["dec"].append(
                     (req, j, np.frombuffer(payload, np.uint8), cl, ul))
-            for j, (_i, payload, ul, s2, vals, wr) in enumerate(scd_units):
+            for j, (_i, payload, ul, s2, vals) in enumerate(scd_units):
                 self._q["scd"].append(
                     (req, len(dec_units) + j,
-                     np.frombuffer(payload, np.uint8), ul, s2, vals, wr))
-            for j, (_i, payload, cl, ul, dh) in enumerate(dcd_units):
-                self._q["dcd"].append(
-                    (req, len(dec_units) + len(scd_units) + j,
-                     np.frombuffer(payload, np.uint8), cl, ul, dh))
+                     np.frombuffer(payload, np.uint8), ul, s2, vals))
             self._lock.notify_all()
         return req.future
 
@@ -543,8 +528,6 @@ class CodecServer:
             return self._submit_encode(units)
         if kind == "scd":
             return self._submit_sidecar(units)
-        if kind == "dcd":
-            return self._submit_decode_hinted(units)
         return self._submit_decode(units)
 
     def _complete_one(self, pending: deque):
@@ -554,8 +537,6 @@ class CodecServer:
                 self._complete_encode(units, handles)
             elif kind == "scd":
                 self._complete_sidecar(units, handles)
-            elif kind == "dcd":
-                self._complete_decode_hinted(units, handles)
             else:
                 self._complete_decode(units, handles)
         except Exception as e:  # device-level failure: fail the wave
@@ -643,59 +624,20 @@ class CodecServer:
                 else:
                     self._resolve(req, b"".join(req.parts))
 
-    def _submit_decode_hinted(self, units):
-        """Depth-hinted framed decode wave (0x81 tpD1 hints): the normal
-        fragment decode graph with per-tile tail round counts — no detect
-        bodies (decode.py resolve='depthtail'). A wrong hint yields wrong
-        bytes, which _assemble_framed's per-chunk CRC catches (host
-        re-decode); the hint is never trusted."""
-        W = self._wave
-        clens = np.zeros(W, np.int32)
-        ulens = np.zeros(W, np.int32)
-        nt = ops_decode.OUT // ops_decode.HINT_TILE
-        deps = np.zeros((W, nt), np.int32)
-        for j, (_req, _i, _frag, cl, ul, dh) in enumerate(units):
-            clens[j] = cl
-            ulens[j] = ul
-            deps[j] = dh
-        width = ops_decode.frag_width(clens)
-        frags = np.zeros((W, width), np.uint8)
-        for j, (_req, _i, frag, cl, _ul, _dh) in enumerate(units):
-            frags[j, :cl] = frag[:cl]
-        return ops_decode.decode_fragments_depth_jit(
-            frags, clens, ulens, deps)
-
-    def _complete_decode_hinted(self, units, handles):
-        out, ok = np.asarray(handles[0]), np.asarray(handles[1])
-        for j, (req, i, _frag, _cl, ul, _dh) in enumerate(units):
-            if not ok[j]:
-                req.failed = True
-                req.oks[i] = False
-            if req.deliver(i, out[j, :ul].tobytes()):
-                try:
-                    self._resolve(req, self._assemble_framed(req))
-                except ValueError as e:
-                    self._resolve(req, exc=e)
-
     def _submit_sidecar(self, units):
         """Sidecar fast-decode wave: units are framed chunks whose 0x80
-        sidecar parsed + split cleanly. Shapes bucket per wave (piece and
-        element widths), so the graph count stays bounded; a False ok (or
-        a CRC mismatch at assembly) routes the chunk to the host in
-        _assemble_framed — the sidecar stays a pure hint."""
+        sidecar parsed cleanly. Shapes bucket per wave (piece and element
+        widths), so the graph count stays bounded; a CRC mismatch at
+        assembly routes the chunk to the host in _assemble_framed — the
+        sidecar stays a pure hint."""
         from . import sidecar as sc
 
-        wrows = max(u[6] for u in units)
         return sc.decode_chunks_jit(*sc.pack_batch(
-            [(u[2].tobytes(), u[3], u[4], u[5]) for u in units]),
-            wrows=wrows)
+            [(u[2].tobytes(), u[3], u[4], u[5]) for u in units]))
 
     def _complete_sidecar(self, units, handles):
-        out, ok = np.asarray(handles[0]), np.asarray(handles[1])
-        for j, (req, i, _payload, ul, _s2, _vals, _w) in enumerate(units):
-            if not ok[j]:
-                req.failed = True
-                req.oks[i] = False
+        out = np.asarray(handles)
+        for j, (req, i, _payload, ul, _s2, _vals) in enumerate(units):
             if req.deliver(i, out[j, :ul].tobytes()):
                 try:
                     self._resolve(req, self._assemble_framed(req))

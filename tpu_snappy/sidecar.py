@@ -1,19 +1,17 @@
 """Framed-stream decode sidecar: co-designed fast-decode metadata.
 
-The decoder's cost is dominated by copy-chain RESOLUTION (pointer doubling
-+ the serial tile tail — ~85% of device decode time, DESIGN.md round-2
-stage budgets), yet the ENCODER holds every chain fully resolved when it
-emits. This module closes that loop at the format level, the way the
+Much of the decoder's work is copy-chain RESOLUTION (pointer doubling),
+yet the ENCODER holds every chain fully resolved when it emits. This module closes that loop at the format level, the way the
 reference co-designed its output stream with its datapath
 (CompressionAccelerator.scala:230-285): the framed encoder may emit one
 spec-skippable chunk (type 0x80; framing_format.txt §4.4 — foreign
 decoders MUST skip 0x80-0xfd) per compressed data chunk, carrying the
 chunk's literal ROOT MAP, and our framed decoder then skips parse,
-transport AND resolve entirely: expand the root map (one windowed scatter
-+ one forward fill) and run ONE full-range byte gather from the element
-bytes. Chunk CRCs (which cover the decoded bytes) still gate the result,
-so a wrong, corrupt, or foreign sidecar can never corrupt output — the
-decoder falls back to the normal path on any mismatch.
+transport AND resolve entirely: expand the root map (one scatter + one
+forward fill) and run ONE full-range byte gather from the element bytes.
+Chunk CRCs (which cover the decoded bytes) still gate the result, so a
+wrong, corrupt, or foreign sidecar can never corrupt output — the decoder
+falls back to the normal path on any mismatch.
 
 Root map representation: maximal affine pieces. For piece p covering
 output positions start[p] <= i < start[p+1]:
@@ -24,9 +22,8 @@ slope 1 covers literal runs and non-overlapping copies, slope 0 covers
 offset-1 RLE (constant root). Size is measured, not assumed: the piece
 count IS the fragmentation of the resolved chain structure, so
 trivially-RLE data costs ~a dozen bytes while dense text costs more than
-the compressed payload itself (measured per-class table + the entropy
-argument in DESIGN.md "Round-3: sidecar co-design") — hence the "auto"
-emission policy in framing.compress.
+the compressed payload itself (several hundred percent of the payload
+on text) — hence the "auto" emission policy in framing.compress.
 
 Wire payload (little-endian):
     magic  b"tpS1"
@@ -49,77 +46,54 @@ MAGIC = b"tpS1"
 #: skippable use by the spec; foreign decoders ignore it by requirement).
 CHUNK_TYPE = 0x80
 
-#: Round-4 partial hint (the text-viable co-design point): a 0x81
-#: skippable chunk carrying the decoder's PER-TILE tail round counts —
-#: 65536/HINT_TILE = 64 bytes + a 12-byte header, so the "auto" policy
-#: emits it on EVERY compressed text chunk (the full tpS1 root map costs
-#: +417% of payload there). The decoder's tile loops then run exactly
-#: their productive depth with no detect body: measured tail 421 -> 328.5
-#: us/frag on mtg (r4_depthtail3, bit-identical). This is also the
-#: measured CEILING of any partial hint: the remaining tail work is the
-#: doubling itself, and replacing THAT needs root-map-class information
-#: (~40 KB/chunk entropy floor — DESIGN.md round-3). Wrong/stale hints
-#: are caught by the framed chunk CRC (fallback to the normal path); a
-#: hint whose (tail_cap, tile, flags) don't match this decoder's
-#: pipeline constants is ignored outright.
+#: Per-tile depth hint: a 0x81 skippable chunk carrying, for each
+#: DEPTH_TILE-byte output tile, the number of tile-local doubling rounds a
+#: tile-sequential resolve needs after dense doubling rounds have run
+#: until at most DEPTH_TAIL_CAP lanes still move (native sr_depth_hints).
+#: 65536/DEPTH_TILE = 64 bytes + a 12-byte header, so the "auto" policy
+#: emits it on every compressed text chunk (the full tpS1 root map costs
+#: more than the payload there). The wire format names both constants; a
+#: hint built for other values parses to None. This decoder validates
+#: hints but resolves every chunk the same way, so a hint never changes
+#: the decoded bytes.
 DEPTH_CHUNK_TYPE = 0x81
 DEPTH_MAGIC = b"tpD1"
+DEPTH_TAIL_CAP = 57344
+DEPTH_TILE = 1024
 
 
 def build_depth(elems: bytes, ulen: int) -> bytes | None:
     """Depth-hint payload for one compressed chunk, or None when the
-    native simulator is unavailable or the stream is malformed."""
-    from .ops import decode as D
+    native library is unavailable or the stream is malformed."""
     if ulen <= 0 or ulen > OUT or len(elems) > 0xFFFF:
         return None
     try:
         from .native import golden
-        d = golden.depth_hints(elems, ulen, D.TAIL_CAP, D.HINT_TILE)
+        d = golden.depth_hints(elems, ulen, DEPTH_TAIL_CAP, DEPTH_TILE)
     except (ImportError, OSError, RuntimeError):
         return None
-    return (DEPTH_MAGIC + np.uint32(D.TAIL_CAP).tobytes()
-            + np.uint16(D.HINT_TILE).tobytes()
+    return (DEPTH_MAGIC + np.uint32(DEPTH_TAIL_CAP).tobytes()
+            + np.uint16(DEPTH_TILE).tobytes()
             + bytes([len(d) & 0xFF, 1]) + d.tobytes())
 
 
 def parse_depth(payload: bytes):
     """Unpack a depth-hint payload -> (nt,) int32 numpy array, or None if
-    malformed/foreign or computed for a different decode pipeline
-    (tail_cap/tile/flags mismatch — the chunk is skippable, so 'ignore')."""
-    from .ops import decode as D
+    malformed/foreign or built for other wire constants (the chunk is
+    skippable, so 'ignore')."""
     if len(payload) < 12 or payload[:4] != DEPTH_MAGIC:
         return None
     cap = int(np.frombuffer(payload[4:8], "<u4")[0])
     tile = int(np.frombuffer(payload[8:10], "<u2")[0])
     nt, flags = payload[10], payload[11]
-    if (cap != D.TAIL_CAP or tile != D.HINT_TILE or flags != 1
+    if (cap != DEPTH_TAIL_CAP or tile != DEPTH_TILE or flags != 1
             or nt != (OUT // tile) & 0xFF or len(payload) != 12 + nt):
         return None
     return np.frombuffer(payload[12:], np.uint8).astype(np.int32)
 
-#: Decode-side piece-length cap: splitting every piece to <= SPLIT_LEN
-#: bytes bounds any 1024 consecutive scatter sources to a span of
-#: 1024 * SPLIT_LEN + 1024 slop cells, so the windowed scatter runs with
-#: wrows = 8 * (SPLIT_LEN + 1) rows. The scatter is window-width-bound
-#: (v5e standalone A/B on mtg pieces: wrows 72 -> 131 vs 192 -> 202
-#: us/frag; a batched-row-dot kernel variant measured 1.9-3x WORSE —
-#: tools/jobs_archive/r3_widescatter2). Full-pipeline sweep (distinct jit
-#: traces, B=24, mtg, us/frag): 22 -> 176.9, 12 -> 167.9, **8 -> 164.6**,
-#: 6 -> 170.1, 4 -> 169.4, 3 -> 170.7 — below 8 the piece inflation
-#: (pw 32768 -> 40960) eats the window saving. Splits happen at
-#: decode-unpack time (a piece split is semantically free), so the wire
-#: keeps maximal pieces.
-SPLIT_LEN = 8
 
-
-def _wrows(split_len: int) -> int:
-    """Windowed-scatter rows implied by the split bound."""
-    return 8 * (split_len + 1)
-
-#: Post-split piece cap: beyond this the device path loses its point and
-#: the sidecar is ignored (the normal decoder runs). Also bounds PW.
-#: Dense text needs headroom: mtg measures ~30-31 K pieces per chunk
-#: post-split (golden streams; own streams fracture slightly more).
+#: Piece cap: beyond this the sidecar is ignored (the normal decoder
+#: runs). Also bounds the padded piece width PW.
 MAX_PIECES = 40960
 
 OUT = 1 << 16
@@ -250,85 +224,22 @@ def parse(payload: bytes):
     return starts, roots, slopes
 
 
-def split_for_device(starts, roots, slopes, ulen: int,
-                     split_len: int = SPLIT_LEN):
-    """Split pieces longer than split_len so the windowed scatter's density
-    contract holds (semantically free: sub-pieces encode the same map).
-    Returns (starts, scatter_vals) int32 arrays, or None when the sidecar
-    is inconsistent with ulen or the split exceeds MAX_PIECES."""
-    if int(starts[-1]) >= ulen:
-        return None
-    plens = np.diff(np.concatenate([starts, [np.int32(ulen)]]))
-    nsub = -(-plens // split_len)
-    total = int(nsub.sum())
-    if total > MAX_PIECES:
-        return None
-    # Sub-piece starts: parent start + (index within parent) * split_len.
-    first = np.cumsum(nsub) - nsub
-    sub = (np.arange(total) - np.repeat(first, nsub)) * split_len
-    s2 = np.repeat(starts, nsub) + sub
-    # Scatter value: slope in bit 17, (root - slope*start + 2^16) below.
-    # Every sub-piece of an affine piece shares its parent's affine
-    # parameters — (root + slope*sub) - slope*(start + sub) telescopes to
-    # root - slope*start — so the values are ONE np.repeat of the parent
-    # values, no per-sub arithmetic.
-    vals = np.repeat((slopes << 17) | (roots - slopes * starts + OUT), nsub)
-    return s2.astype(np.int32), vals.astype(np.int32)
-
-
-#: Parent-direct decode path (round 4): scatter the MAXIMAL pieces at
-#: their true starts and forward-fill across whole pieces, instead of
-#: splitting every piece to SPLIT_LEN sub-pieces on the host first. The
-#: split's sub-values are all identical to their parent's (the affine
-#: value telescopes — see split_for_device), so splitting was purely a
-#: scatter-density/ffill-gap device; going parent-direct (a) deletes the
-#: host np.repeat (~1.15 ms/chunk, the serving-path bottleneck VERDICT-r3
-#: item 4), (b) shrinks the scatter: fewer sources (pieces, not
-#: sub-pieces) and a ~2x narrower window on text (1024 pieces span
-#: ~2.5-3 KB vs the split form's 8 KB), (c) costs only deeper ffill
-#: levels (log2(64K) = 16 vs 4 — the ffill is VMEM-resident and cheap).
-#: wrows is host-chosen per batch from the measured per-1024-piece spans
-#: (buckets below; 512 = full height, always feasible, so no stream ever
-#: needs a host split); the scatter's overflow counter still gates
-#: correctness if a caller passes an undersized bucket.
-PARENT_WROWS = (40, 72, 136, 512)
-
-
 def parent_vals(starts: np.ndarray, roots: np.ndarray,
                 slopes: np.ndarray) -> np.ndarray:
     """Scatter value per maximal piece: slope in bit 17,
     (root - slope*start + 2^16) below — position-independent within the
-    piece, which is what makes parent-direct scatter + ffill exact."""
+    piece, which is what makes scatter + forward-fill exact."""
     return ((slopes.astype(np.int32) << 17)
             | (roots.astype(np.int32) - slopes * starts + OUT))
 
 
-def parent_wrows(starts: np.ndarray) -> int:
-    """Smallest wrows bucket covering every 1024-piece source tile's
-    destination span (the windowed scatter anchors each tile at its min
-    active dest rounded down to 1024 cells, so allow 8 rows of slop)."""
-    p = len(starts)
-    if p == 0:
-        return PARENT_WROWS[0]
-    k = -(-p // 1024)
-    pad = np.pad(starts, (0, k * 1024 - p), mode="edge")
-    tiles = pad.reshape(k, 1024)
-    rows = int((tiles[:, -1] - tiles[:, 0]).max()) // 128 + 9
-    for w in PARENT_WROWS:
-        if rows <= w:
-            return w
-    return PARENT_WROWS[-1]
-
-
 def prep_parent(starts, roots, slopes, ulen: int):
-    """Host prep for the parent-direct decode path: validate the parsed
-    sidecar against ulen and return (starts, scatter values, wrows bucket),
-    or None when inconsistent / beyond the device piece capacity. Replaces
-    split_for_device's np.repeat (measured 1.011 -> 0.224 ms/chunk on mtg
-    sidecars, r4_scparent)."""
+    """Host prep for the device decode: validate the parsed sidecar
+    against ulen and return (starts, scatter values), or None when
+    inconsistent or beyond MAX_PIECES."""
     if len(starts) > MAX_PIECES or int(starts[-1]) >= ulen:
         return None
-    return starts, parent_vals(starts, roots, slopes), parent_wrows(starts)
+    return starts, parent_vals(starts, roots, slopes)
 
 
 def pieces_width(total: int) -> int:
@@ -338,10 +249,9 @@ def pieces_width(total: int) -> int:
 
 
 def elems_width(max_elems: int) -> int:
-    """Static padded element-bytes width (the gather TABLE height): 8192
-    buckets. The gather's hi-one-hot build is table-height-proportional,
-    and compressed chunks are < 64 KB by the framing emit rule, so text
-    runs at ~half the full-block table."""
+    """Static padded element-bytes width (the gather table): 8192-byte
+    buckets, so few jit variants; compressed chunks are < 64 KB by the
+    framing emit rule."""
     b = 8192
     return int(min(max(b, -(-max_elems // b) * b), OUT))
 
@@ -369,76 +279,35 @@ def pack_batch(jobs, pad_rows: int = 0):
 
 # ---- decoder side (device half) ----
 
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
-
-
-def _decode_one(elems, starts, vals, ulen, split_len: int = SPLIT_LEN,
-                wrows: int | None = None):
+def _decode_one(elems, starts, vals, ulen):
     """out[i] = elems[g[i]] with g expanded from scattered piece values:
     scatter (slope<<17 | root-slope*start+2^16) at piece starts (padding
-    lanes carry starts == 65536 = dropped), forward-fill, then one
-    1-limb byte gather whose table is the BUCKETED element width (< 64 KB
-    for compressed chunks — the build cost is table-height-proportional).
-    No parse, no transport, no resolve — only the mandatory gather of the
-    round-2c decode floor remains.
-
-    wrows=None: legacy split mode (starts/vals are host-split sub-pieces,
-    gap <= split_len). wrows=<bucket>: parent-direct mode (starts/vals
-    are the MAXIMAL wire pieces; host chose the bucket via parent_wrows,
-    ffill runs full-depth). Identical outputs for the same chunk."""
+    lanes carry starts == 65536 = dropped), forward-fill, then one byte
+    gather. No parse, no transport, no resolve."""
     from .ops import scan
-    from .ops.pallas import ffill as pallas_ffill
-    from .ops.pallas import gather as pallas_gather
-    from .ops.pallas import scatter as pallas_scatter
 
     ew = elems.shape[-1]
     oiota = jnp.arange(OUT, dtype=jnp.int32)
-    if _on_tpu():
-        if wrows is None:
-            # Split pieces bound every fill gap at split_len: few fill
-            # levels, not log2(64K) = 16.
-            scattered, ovf = pallas_scatter.scatter_windowed(
-                starts, vals, 3, OUT, wrows=_wrows(split_len))
-            filled = pallas_ffill.ffill_block(scattered != 0, scattered,
-                                              max_gap=split_len)[0]
-        else:
-            scattered, ovf = pallas_scatter.scatter_windowed(
-                starts, vals, 3, OUT, wrows=wrows)
-            filled = pallas_ffill.ffill_block(scattered != 0, scattered)[0]
-    else:
-        ovf = jnp.int32(0)
-        scattered = jnp.zeros(OUT + 1, jnp.int32).at[
-            jnp.clip(starts, 0, OUT)].add(vals)[:OUT]
-        filled = scan.ffill_many(scattered != 0, (scattered,))[0]
+    scattered = jnp.zeros(OUT + 1, jnp.int32).at[
+        jnp.clip(starts, 0, OUT)].add(vals)[:OUT]
+    filled = scan.ffill(scattered != 0, scattered)
     slope = filled >> 17
     g = jnp.clip(slope * oiota + (filled & 0x1FFFF) - OUT, 0, ew - 1)
-    if _on_tpu():
-        out = pallas_gather.gather_block(elems.astype(jnp.int32), g, limbs=1)
-    else:
-        out = elems.astype(jnp.int32)[g]
-    out = jnp.where(oiota < ulen, out, 0).astype(jnp.uint8)
-    return out, ovf == 0
+    out = elems[g]
+    return jnp.where(oiota < ulen, out, 0).astype(jnp.uint8)
 
 
-@functools.partial(jax.jit, static_argnames=("split_len", "wrows"))
-def decode_chunks_jit(elems, starts, vals, ulens,
-                      split_len: int = SPLIT_LEN,
-                      wrows: int | None = None):
+@jax.jit
+def decode_chunks_jit(elems, starts, vals, ulens):
     """Batched sidecar decode: elems (B, EW) u8 (element bytes zero-padded
     to an elems_width bucket), starts/vals (B, PW) i32 (PW-padded with
-    starts == 65536 = dropped), ulens (B,) i32. wrows selects the
-    parent-direct mode (see _decode_one). Returns
-    (out (B, 65536) u8, ok (B,))."""
-    return jax.vmap(
-        lambda e, s, v, u: _decode_one(e, s, v, u, split_len, wrows)
-    )(elems, starts, vals, ulens)
+    starts == 65536 = dropped), ulens (B,) i32. Returns out (B, 65536) u8;
+    callers check each chunk's CRC."""
+    return jax.vmap(_decode_one)(elems, starts, vals, ulens)
 
 
-@functools.partial(jax.jit, static_argnames=("wave", "split_len", "wrows"))
-def decode_corpus_sidecar(elems, starts, vals, ulens, wave: int = 8,
-                          split_len: int = SPLIT_LEN,
-                          wrows: int | None = None):
+@functools.partial(jax.jit, static_argnames=("wave",))
+def decode_corpus_sidecar(elems, starts, vals, ulens, wave: int = 8):
     """Single-dispatch wave-mapped form (the decode_corpus sibling): one
     compiled program decodes any number of sidecar chunks."""
     nf = elems.shape[0]
@@ -447,8 +316,5 @@ def decode_corpus_sidecar(elems, starts, vals, ulens, wave: int = 8,
     sw = starts.reshape(nf // wave, wave, starts.shape[-1])
     vw = vals.reshape(nf // wave, wave, vals.shape[-1])
     uw = ulens.reshape(nf // wave, wave)
-    out, ok = jax.lax.map(
-        lambda t: jax.vmap(
-            lambda e, s, v, u: _decode_one(e, s, v, u, split_len, wrows)
-        )(*t), (fw, sw, vw, uw))
-    return out.reshape(nf, -1), ok.reshape(nf)
+    out = jax.lax.map(lambda t: jax.vmap(_decode_one)(*t), (fw, sw, vw, uw))
+    return out.reshape(nf, -1)
