@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from tpu_snappy import format as fmt
+from tpu_snappy.config import DEFAULT_CONFIG
 from tpu_snappy.native import golden
 from tpu_snappy.parallel import mesh as meshlib, shard, streaming
 from tpu_snappy.utils import corpus
@@ -61,6 +62,48 @@ def test_streaming_compress(mesh8):
     assert golden.uncompress(comp) == data
     # Stream output identical to one-shot output (wave boundaries invisible).
     assert comp == shard.encode_dp(data, mesh8)
+
+
+_COLLECTIVES = ("all-gather", "all-reduce", "collective-permute",
+                "all-to-all", "reduce-scatter", "collective-broadcast")
+
+
+@pytest.mark.parametrize("program", ["encode", "encode_compact", "decode",
+                                     "decode_sidecar"])
+def test_sharded_programs_hold_no_collective(mesh8, program):
+    # Every sharded program keeps its outputs on the dp axis. A program
+    # with a collective needs all devices to enter it together, and the
+    # streaming drain and the server dispatch such programs from more than
+    # one thread, which can enter two of them in different orders on
+    # different devices.
+    from jax.sharding import PartitionSpec as P
+
+    def arg(shape, dtype, spec):
+        return jax.ShapeDtypeStruct(
+            shape, dtype, sharding=jax.sharding.NamedSharding(mesh8, spec))
+
+    rows, wave = 16, 2
+    blocks = arg((rows, fmt.BLOCK_SIZE), np.uint8, P("dp", None))
+    scal = arg((rows,), np.int32, P("dp"))
+    fn, args = {
+        "encode": (shard._encode_fn(mesh8, DEFAULT_CONFIG, wave),
+                   (blocks, scal)),
+        "encode_compact": (
+            shard._encode_fn_compact(mesh8, DEFAULT_CONFIG, wave),
+            (blocks, scal)),
+        "decode": (shard._decode_fn(mesh8, "dp", wave),
+                   (arg((rows, 8192), np.uint8, P("dp", None)), scal, scal)),
+        "decode_sidecar": (
+            shard._decode_sidecar_fn(mesh8, "dp", wave),
+            (arg((rows, 8192), np.uint8, P("dp", None)),
+             arg((rows, 256), np.int32, P("dp", None)),
+             arg((rows, 256), np.int32, P("dp", None)), scal)),
+    }[program]
+    hlo = fn.lower(*args).compile().as_text()
+    assert "num_partitions=8" in hlo
+    found = [op for op in _COLLECTIVES if op + "(" in hlo
+             or op + "-start(" in hlo]
+    assert not found, f"{program}: collectives {found}"
 
 
 def test_corpus_single_dispatch_matches_waves():

@@ -190,28 +190,34 @@ def test_auto_policy_gates_on_size():
     assert len(fr_auto) > len(fr_off)
 
 
-def _has_chunk(fr: bytes, typ: int) -> int:
-    n, ip = 0, len(framing.STREAM_ID)
+def _chunks_of(fr: bytes, typ: int) -> list[bytes]:
+    out, ip = [], len(framing.STREAM_ID)
     while ip < len(fr):
+        ln = int.from_bytes(fr[ip + 1: ip + 4], "little")
         if fr[ip] == typ:
-            n += 1
-        ip += 4 + int.from_bytes(fr[ip + 1: ip + 4], "little")
-    return n
+            out.append(fr[ip + 4: ip + 4 + ln])
+        ip += 4 + ln
+    return out
+
+
+def _has_chunk(fr: bytes, typ: int) -> int:
+    return len(_chunks_of(fr, typ))
 
 
 def test_depth_hint_fires_on_text_under_auto():
     # The auto policy must emit SOMETHING on dense text — the 76-byte
     # 0x81 per-tile depth hint — and the hinted stream must decode
-    # bit-exactly on the device through the plain resolve (the hints are
-    # validated and counted, never needed), with no host fallback.
+    # bit-exactly on the device through the plain resolve (the decoder
+    # skips the hints), with no host fallback. Every emitted hint is
+    # well-formed for the wire constants.
     data = corpus.synth("text", 131072, 103)
     fr = framing.compress(data, sidecar="auto")
-    assert _has_chunk(fr, framing.CHUNK_DEPTH) >= 1
+    hints = _chunks_of(fr, framing.CHUNK_DEPTH)
+    assert len(hints) >= 1
+    assert all(sidecar.parse_depth(h) is not None for h in hints)
     assert _has_chunk(fr, framing.CHUNK_SIDECAR) == 0  # root map too big
     framing.decode_stats.clear()
     assert framing.decompress(fr) == data
-    assert framing.decode_stats["hinted"] == _has_chunk(
-        fr, framing.CHUNK_DEPTH)
     assert framing.decode_stats["host_chunks"] == 0
     # foreign decoders skip 0x81 like any skippable chunk
     from tpu_snappy.native import golden as g

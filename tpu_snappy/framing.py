@@ -33,7 +33,7 @@ CHUNK_PADDING = 0xFE
 #: foreign decoders MUST ignore them per spec §4.4. 0x80 = full root map
 #: (skip parse+resolve entirely); 0x81 = per-tile depth hints (76 bytes,
 #: ~0.3% of a text stream — cheap enough that "auto" emits it on every
-#: compressed text chunk). Decode validates 0x81 hints but resolves those
+#: compressed text chunk). Decode skips 0x81 hints and resolves those
 #: chunks like any other.
 CHUNK_SIDECAR = 0x80
 CHUNK_DEPTH = 0x81
@@ -42,7 +42,6 @@ CHUNK_DEPTH = 0x81
 #: "sidecar" — chunks decoded through a 0x80 root map;
 #: "sidecar_rejected" — chunks whose sidecar decode failed the chunk CRC
 #: and went to the normal device path;
-#: "hinted" — compressed chunks that carried a valid 0x81 depth hint;
 #: "host_chunks" — compressed chunks decoded by the sequential host
 #: decoder (device-flagged, or beyond the device fragment capacity).
 decode_stats: collections.Counter = collections.Counter()
@@ -338,7 +337,7 @@ def _parse_chunks(framed: bytes):
             if ln < 4:
                 raise ValueError("data chunk shorter than its checksum")
             chunks.append((typ, ip, ln))
-        elif typ in (CHUNK_SIDECAR, CHUNK_DEPTH):
+        elif typ == CHUNK_SIDECAR:
             # Our fast-decode sidecars (skippable for everyone else):
             # carried through so the decoder can pair them with the data
             # chunk that follows.
@@ -438,42 +437,32 @@ def _decode_data_chunks(bodies: list[tuple[int, bytes]],
     the fragment table. Chunks with a usable sidecar take the fast path
     (sidecar.py: skip parse/transport/resolve, one gather); the chunk CRC
     still gates the result, so a wrong sidecar only costs a re-decode.
-    Depth hints (0x81) are validated and counted, and their chunks decode
-    like unhinted ones. Raises ValueError with the (window-relative)
-    chunk index on corruption."""
+    Depth hints (0x81) are skipped: their chunks decode like unhinted
+    ones. Raises ValueError with the (window-relative) chunk index on
+    corruption."""
     from .ops import decode as ops_decode
     from . import api
 
     out_parts: list[bytes | None] = [None] * len(bodies)
 
-    # Pair each sidecar/depth-hint with the compressed data chunk that
-    # follows it.
+    # Pair each sidecar with the compressed data chunk that follows it.
     side_for: dict[int, bytes] = {}
-    depth_for: dict[int, bytes] = {}
-    pending_s = pending_d = None
+    pending_s = None
     for i, (t, b) in enumerate(bodies):
         if t == CHUNK_SIDECAR:
             pending_s = b
-        elif t == CHUNK_DEPTH:
-            pending_d = b
         elif t == CHUNK_COMPRESSED:
             if pending_s is not None:
                 side_for[i] = pending_s
-            if pending_d is not None:
-                depth_for[i] = pending_d
-            pending_s = pending_d = None
+            pending_s = None
         elif t == CHUNK_UNCOMPRESSED:
-            pending_s = pending_d = None
+            pending_s = None
 
     comp_idx = [i for i, (t, _) in enumerate(bodies)
                 if t == CHUNK_COMPRESSED]
     if use_sidecar and side_for:
         comp_idx = _decode_sidecar_chunks(bodies, side_for, comp_idx,
                                           out_parts, cfg, mesh)
-    if use_sidecar and depth_for:
-        from . import sidecar as sc
-        decode_stats["hinted"] += sum(
-            sc.parse_depth(p) is not None for p in depth_for.values())
 
     if comp_idx:
         clens = np.zeros(len(comp_idx), np.int32)
@@ -608,7 +597,7 @@ def decompress_stream(src, dst, mesh=None, chunks_per_wave: int = 64,
             # a window boundary away from the chunk it describes.
             if ndata >= chunks_per_wave:
                 flush()
-        elif typ in (CHUNK_SIDECAR, CHUNK_DEPTH):
+        elif typ == CHUNK_SIDECAR:
             window.append((typ, body))
         elif typ == CHUNK_PADDING or typ >= 0x80:
             pass  # skippable

@@ -3,8 +3,9 @@
 The reference has no multi-chip story (single RoCC on a single Rocket tile,
 SURVEY.md §2.6); this layer is the device scaling design: independent
 64 KB Snappy blocks are data-parallel by format definition (no cross-block
-references), so the only mesh axis is `dp`. Collectives appear only
-in the (offset, length) manifest gather — XLA inserts them from shardings.
+references), so the only mesh axis is `dp`. Every sharded program keeps
+its inputs and outputs on the `dp` axis and holds no collective; the host
+gathers the (offset, length) manifest and the payload (shard.fetch_global).
 """
 
 from __future__ import annotations
@@ -34,7 +35,3 @@ def block_sharding(mesh: Mesh, axis: str = "dp") -> NamedSharding:
 def scalar_sharding(mesh: Mesh, axis: str = "dp") -> NamedSharding:
     """Per-block scalars (B,) sharded along the block axis."""
     return NamedSharding(mesh, P(axis))
-
-
-def replicated(mesh: Mesh) -> NamedSharding:
-    return NamedSharding(mesh, P())

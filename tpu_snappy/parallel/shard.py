@@ -89,14 +89,13 @@ def assemble_compact(dense, lens_np: np.ndarray, nblocks: int, mesh,
     sliced to their exact local totals (bucketed slice shapes keep the
     fetch-program count bounded). Returns the per-device payload pieces
     in block order. Multi-process runs gather the global dense first
-    (fetch_global) — the padded transfer is the collective's job;
-    single-process fetches only ceil(total/bucket) of each segment.
+    (fetch_global); single-process fetches only ceil(total/bucket) of
+    each segment.
 
-    Each segment is sliced from its own device's shard: a slice of the
-    global array would be a multi-device program, and callers assemble
-    on a worker thread while the next wave's sharded program (with its
-    all-gather) is dispatched from another, which can order the two
-    collectives differently on different devices and deadlock."""
+    Each segment is sliced from its own device's shard, a one-device
+    program. A slice of the global array would be a multi-device program
+    that the partitioner may give a collective, and callers assemble on a
+    worker thread while the next wave is dispatched from another."""
     ndev = mesh.devices.size
     per = len(lens_np) // ndev
     pieces = []

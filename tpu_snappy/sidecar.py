@@ -53,8 +53,8 @@ CHUNK_TYPE = 0x80
 #: 65536/DEPTH_TILE = 64 bytes + a 12-byte header, so the "auto" policy
 #: emits it on every compressed text chunk (the full tpS1 root map costs
 #: more than the payload there). The wire format names both constants; a
-#: hint built for other values parses to None. This decoder validates
-#: hints but resolves every chunk the same way, so a hint never changes
+#: hint built for other values parses to None. This decoder skips the
+#: hints and resolves every chunk the same way, so a hint never changes
 #: the decoded bytes.
 DEPTH_CHUNK_TYPE = 0x81
 DEPTH_MAGIC = b"tpD1"
